@@ -1,0 +1,46 @@
+"""AMP (anti-aliased multi-periodicity) residual block on [B, C, T]
+(reference vits_decoder/bigv.py:19-64): per dilation, SnakeAlias -> dilated
+weight-norm conv -> SnakeAlias -> conv, added to the input. The reference's
+`activations` list interleaves the two snakes: act1 of dilation j is
+`activations.{2j}`, act2 is `activations.{2j+1}`.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .conv import Conv1d
+from .snake import SnakeAlias
+
+
+def get_padding(kernel_size: int, dilation: int = 1) -> int:
+    return (kernel_size * dilation - dilation) // 2
+
+
+class AMPBlock(nn.Module):
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: tuple[int, ...] = (1, 3, 5)):
+        super().__init__()
+        self.convs1 = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size, dilation=d,
+                   padding=get_padding(kernel_size, d), weight_norm=True)
+            for d in dilation)
+        self.convs2 = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, 1),
+                   weight_norm=True)
+            for _ in dilation)
+        self.activations = nn.ModuleList(SnakeAlias(channels) for _ in range(2 * len(dilation)))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for c1, c2 in zip(self.convs1, self.convs2):
+            c1.init_weights(generator)
+            c2.init_weights(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, C, T] -> [B, C, T]."""
+        for j, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
+            xt = c1(self.activations[2 * j](x))
+            xt = c2(self.activations[2 * j + 1](xt))
+            x = xt + x
+        return x
