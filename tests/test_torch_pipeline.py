@@ -108,5 +108,6 @@ def test_csv_pitch_round_trip(tmp_path):
 
 def test_base_model_config_matches_yaml():
     hp = j_load_config(os.path.join(REPO, "configs", "base.yaml"))
-    for section in ("data", "vits", "gen"):
-        assert BASE_MODEL_CONFIG[section] == hp[section].to_dict()
+    assert sorted(BASE_MODEL_CONFIG) == ["data", "gen", "mpd", "mrd", "train", "vits"]
+    for section in BASE_MODEL_CONFIG:
+        assert BASE_MODEL_CONFIG[section] == hp[section].to_dict(), section

@@ -61,6 +61,52 @@ def test_from_jax_params_inverts_jax_converter():
     model.load_state_dict(sd, strict=True)
 
 
+def _random_tree(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes)
+
+
+def test_from_jax_trn_and_disc_params_invert_jax_converters():
+    """JAX SynthesizerTrn and Discriminator trees -> the port's state_dicts
+    -> the JAX package's convert.synthesizer_trn / convert.discriminator give
+    back the same trees, and the port's training models load them strictly."""
+    from whisper_vits_svc_tpu.models.discriminator import Discriminator as JDiscriminator
+    from whisper_vits_svc_tpu.models.synthesizer import SynthesizerTrn as JSynthesizerTrn
+    from whisper_vits_svc_tpu_torch.models.convert import (from_jax_disc_params,
+                                                           from_jax_trn_params)
+    from whisper_vits_svc_tpu_torch.train.step import build_models
+
+    hp = config_from_dict({
+        **NARROW, "data": {**NARROW["data"], "segment_size": 4 * 32},
+        "vits": {**NARROW["vits"], "gin_channels": 6},
+        "mpd": dict(periods=[2, 3], kernel_size=5, stride=3, lReLU_slope=0.2),
+        "mrd": dict(resolutions=[[64, 16, 32], [128, 32, 64]], lReLU_slope=0.2)})
+    g_model = JSynthesizerTrn(
+        spec_channels=65, segment_size=4, ppg_dim=12, vec_dim=8, spk_dim=6, gin_channels=6,
+        inter_channels=8, hidden_channels=8, filter_channels=12, upsample_rates=(4, 4, 2),
+        upsample_kernel_sizes=(8, 8, 4), upsample_initial_channel=16,
+        resblock_kernel_sizes=(3, 5), resblock_dilation_sizes=((1, 3, 5), (1, 3, 5)),
+        sampling_rate=3200)
+    t = 6
+    g_shapes = jax.eval_shape(
+        g_model.init, {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1),
+                       "dropout": jax.random.PRNGKey(2)},
+        jnp.zeros((1, t, 12)), jnp.zeros((1, t, 8)), jnp.full((1, t), 200.0),
+        jnp.zeros((1, t, 65)), jnp.zeros((1, 6)), jnp.full((1,), t, jnp.int32),
+        jnp.full((1,), t, jnp.int32))["params"]
+    d_model = JDiscriminator(mrd_resolutions=((64, 16, 32), (128, 32, 64)), mpd_periods=(2, 3))
+    d_shapes = jax.eval_shape(d_model.init, jax.random.PRNGKey(3),
+                              jnp.zeros((1, 128, 1)))["params"]
+    g_params, d_params = _random_tree(g_shapes, 3), _random_tree(d_shapes, 4)
+
+    g_sd, d_sd = from_jax_trn_params(g_params), from_jax_disc_params(d_params)
+    _leaves_equal(jconvert.synthesizer_trn(g_sd), g_params)
+    _leaves_equal(jconvert.discriminator(d_sd), d_params)
+    g, d = build_models(hp)
+    g.load_state_dict(g_sd, strict=True)
+    d.load_state_dict(d_sd, strict=True)
+
+
 def test_load_jax_ckpt_reads_flax_msgpack(tmp_path):
     _, params = _jax_params(1)
     payload = {"model_g": params, "step": 7, "epoch": 2, "hp_raw": "x: 1",

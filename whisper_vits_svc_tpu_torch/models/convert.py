@@ -5,13 +5,17 @@ whisper_vits_svc_tpu/models/convert.py reads), so a reference `.pth`
 `model_g` loads directly. `from_jax_params` is the inverse of the JAX
 package's `convert.synthesizer_infer`: it maps a JAX SynthesizerInfer param
 tree (nested dict of arrays) back to those names, reading every depth from
-the tree. `load_jax_ckpt` reads a JAX `.ckpt` (flax msgpack) with plain
+the tree. `from_jax_trn_params` and `from_jax_disc_params` are the inverses
+of `convert.synthesizer_trn` and `convert.discriminator`: a JAX
+SynthesizerTrn tree and a JAX Discriminator tree to the training models'
+state_dicts. `load_jax_ckpt` reads a JAX `.ckpt` (flax msgpack) with plain
 `msgpack`, imported lazily.
 
 Layouts: JAX Conv1d (K, I, O) -> torch (O, I, K); JAX ConvTranspose1d
-(K, I, O) -> torch (I, O, K); weight-norm g (1, 1, O) -> (O, 1, 1) and
-(1, I, 1) -> (I, 1, 1); Dense (I, O) -> 1x1 conv (O, I, 1) or Linear (O, I);
-LayerNorm scale/bias -> gamma/beta.
+(K, I, O) -> torch (I, O, K); JAX Conv2d (Kh, Kw, I, O) -> torch
+(O, I, Kh, Kw); weight-norm g (1, 1, O) -> (O, 1, 1), (1, I, 1) -> (I, 1, 1)
+and (1, 1, 1, O) -> (O, 1, 1, 1); Dense (I, O) -> 1x1 conv (O, I, 1) or
+Linear (O, I); LayerNorm scale/bias -> gamma/beta.
 """
 
 from __future__ import annotations
@@ -52,12 +56,20 @@ def _wn_convT1d(sd: dict, name: str, p: Mapping) -> None:
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
+def _wn_conv2d(sd: dict, name: str, p: Mapping) -> None:
+    sd[f"{name}.weight_g"] = _t(np.reshape(p["g"], (-1, 1, 1, 1)))
+    sd[f"{name}.weight_v"] = _t(np.transpose(p["v"], (3, 2, 0, 1)))
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
 def _conv1x1_from_dense(sd: dict, name: str, p: Mapping) -> None:
     sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None])
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
 def _wn(sd: dict, name: str, p: Mapping) -> None:
+    if "cond_layer" in p:
+        _wn_conv1d(sd, f"{name}.cond_layer", p["cond_layer"])
     for i in range(_count(p, "in_layers")):
         _wn_conv1d(sd, f"{name}.in_layers.{i}", p[f"in_layers_{i}"])
         _wn_conv1d(sd, f"{name}.res_skip_layers.{i}", p[f"res_skip_layers_{i}"])
@@ -131,6 +143,39 @@ def from_jax_params(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     text_encoder(sd, "enc_p", tree["enc_p"])
     coupling_block(sd, "flow", tree["flow"])
     generator(sd, "dec", tree["dec"])
+    return sd
+
+
+def from_jax_trn_params(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX SynthesizerTrn params {emb_g, enc_p, speaker_classifier, enc_q,
+    flow, dec} -> the port's SynthesizerTrn state_dict."""
+    sd = from_jax_params(tree)
+    sd["emb_g.weight"] = _t(np.asarray(tree["emb_g"]["kernel"]).T)
+    sd["emb_g.bias"] = _t(tree["emb_g"]["bias"])
+    for j in range(3):  # the reference Sequential holds the GRL at index 0
+        _wn_conv1d(sd, f"speaker_classifier.classifier.{2 * j + 1}",
+                   tree["speaker_classifier"][f"conv_{j}"])
+    q = tree["enc_q"]
+    _conv1d(sd, "enc_q.pre", q["pre"])
+    _wn(sd, "enc_q.enc", q["enc"])
+    _conv1d(sd, "enc_q.proj", q["proj"])
+    return sd
+
+
+def from_jax_disc_params(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX Discriminator params {mrd_i, mpd_i, msd} -> the port's
+    Discriminator state_dict."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    for kind in ("mrd", "mpd"):
+        for i in range(_count(tree, kind)):
+            d, name = tree[f"{kind}_{i}"], f"{kind.upper()}.discriminators.{i}"
+            for j in range(_count(d, "convs")):
+                _wn_conv2d(sd, f"{name}.convs.{j}", d[f"convs_{j}"])
+            _wn_conv2d(sd, f"{name}.conv_post", d["conv_post"])
+    msd = tree["msd"]
+    for j in range(_count(msd, "convs")):
+        _wn_conv1d(sd, f"MSD.convs.{j}", msd[f"convs_{j}"])
+    _wn_conv1d(sd, "MSD.conv_post", msd["conv_post"])
     return sd
 
 

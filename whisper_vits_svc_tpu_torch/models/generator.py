@@ -4,9 +4,13 @@ ConvTranspose1d upsamplers (x5*4*4*2*2 = x320), each followed by the NSF
 excitation injected through a strided noise conv and three averaged
 AMPBlocks, then the anti-aliased snake and a bias-free k=7 projection.
 
-The excitation is precomputed (`har_source`, whole utterance, nn/nsf.py).
-Public layout: spk [B, spk_dim], x [B, T, C], har_source [B, T*hop, 1] ->
-audio [B, T*hop, 1]; the stages run in [B, C, T].
+In inference the excitation is precomputed (`har_source`, whole utterance,
+nn/nsf.py). In training (JAX models/generator.py:95-116) it is computed in
+the graph from the segment's frame F0, with random phases and noise, and the
+latent gets a +1 sigma perturbation; both draws come from an explicit
+torch.Generator. Public layout: spk [B, spk_dim], x [B, T, C], har_source
+[B, T*hop, 1] or f0_frames [B, T] -> audio [B, T*hop, 1]; the stages run in
+[B, C, T].
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from torch import nn
 
 from ..nn.amp import AMPBlock
 from ..nn.conv import Conv1d, ConvTranspose1d
+from ..nn.nsf import source_hn_nsf
 from ..nn.snake import SnakeAlias
 
 
@@ -54,9 +59,12 @@ class Generator(nn.Module):
     def __init__(self, upsample_input: int = 192, upsample_initial_channel: int = 320,
                  upsample_rates=(5, 4, 4, 2, 2), upsample_kernel_sizes=(15, 8, 8, 4, 4),
                  resblock_kernel_sizes=(3, 7, 11),
-                 resblock_dilation_sizes=((1, 3, 5),) * 3, spk_dim: int = 256):
+                 resblock_dilation_sizes=((1, 3, 5),) * 3, spk_dim: int = 256,
+                 sampling_rate: int = 32000):
         super().__init__()
         self.num_kernels = len(resblock_kernel_sizes)
+        self.hop = int(math.prod(upsample_rates))
+        self.sampling_rate = sampling_rate
         self.adapter = SpeakerAdapter(spk_dim, upsample_input)
         self.conv_pre = Conv1d(upsample_input, upsample_initial_channel, 7, padding=3)
         self.ups = nn.ModuleList()
@@ -88,9 +96,18 @@ class Generator(nn.Module):
         self.conv_post.init_weights(generator)
 
     def forward(self, spk: torch.Tensor, x: torch.Tensor,
-                har_source: torch.Tensor) -> torch.Tensor:
+                har_source: torch.Tensor | None = None,
+                f0_frames: torch.Tensor | None = None, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """har_source, or f0_frames to compute it here (random phases and
+        noise from `generator` when train). train=True perturbs the latent."""
+        if train:
+            x = x + torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
         x = self.adapter(x, spk)
         x = mish(self.conv_pre(x.transpose(1, 2)))  # [B, C, T]
+        if har_source is None:
+            har_source = source_hn_nsf(f0_frames, self.hop, self.sampling_rate,
+                                       rng=generator if train else None)
         har = har_source.transpose(1, 2)  # [B, 1, S]
         nk = self.num_kernels
         for i, (up, noise_conv) in enumerate(zip(self.ups, self.noise_convs)):

@@ -4,8 +4,8 @@ Weight norm is explicit: `weight_g`/`weight_v` parameters and
 w = g * v / (||v|| + 1e-12), as the JAX package computes it
 (whisper_vits_svc_tpu/nn/conv.py:41-43), so that a reference `.pth`
 state_dict loads without renaming. Conv1d takes the norm per output channel
-over (I, K); ConvTranspose1d, whose torch weight is (I, O, K), per input
-channel over (O, K).
+over (I/groups, K) and Conv2d over (I, kh, kw); ConvTranspose1d, whose torch
+weight is (I, O, K), per input channel over (O, K).
 
 Initializers mirror the JAX package's (torch's defaults): U(-b, b) with
 b = 1/sqrt(fan_in), and g = ||v|| so that w == v at init.
@@ -45,10 +45,11 @@ class Conv1d(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
-                 bias: bool = True, weight_norm: bool = False):
+                 bias: bool = True, weight_norm: bool = False, groups: int = 1):
         super().__init__()
         self.stride, self.padding, self.dilation = stride, padding, dilation
-        shape = (out_channels, in_channels, kernel_size)
+        self.groups = groups
+        shape = (out_channels, in_channels // groups, kernel_size)
         self.weight_norm = weight_norm
         if weight_norm:
             self.weight_g = nn.Parameter(torch.empty(out_channels, 1, 1))
@@ -78,14 +79,36 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv1d(x, self.kernel(), self.bias, self.stride, self.padding,
-                        self.dilation)
+                        self.dilation, self.groups)
 
     def forward_ntc(self, x: torch.Tensor) -> torch.Tensor:
         """[B, T, C] in and out; a 1x1 conv is one matmul, no transposes."""
         w = self.kernel()
-        if w.shape[2] == 1 and self.stride == 1 and self.padding == 0:
+        if w.shape[2] == 1 and self.stride == 1 and self.padding == 0 and self.groups == 1:
             return F.linear(x, w[:, :, 0], self.bias)
         return self(x.transpose(1, 2)).transpose(1, 2)
+
+
+class Conv2d(nn.Module):
+    """Weight-norm torch.nn.Conv2d on [B, C, H, W] (the MPD and MRD stacks);
+    weight_g is [O, 1, 1, 1]."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple[int, int],
+                 stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0)):
+        super().__init__()
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.weight_g = nn.Parameter(torch.empty(out_channels, 1, 1, 1))
+        self.weight_v = nn.Parameter(torch.empty(out_channels, in_channels, *kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        fan_in = self.weight_v[0].numel()
+        _init_wn_(self.weight_g, self.weight_v, fan_in, generator)
+        uniform_init_(self.bias, fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, wn_weight(self.weight_g, self.weight_v), self.bias, self.stride,
+                        self.padding)
 
 
 class ConvTranspose1d(nn.Module):

@@ -39,10 +39,30 @@ def config_from_dict(d: Mapping) -> Config:
     return Config._wrap(d)
 
 
-# The data/vits/gen sections of configs/base.yaml, for callers that must not
-# depend on PyYAML (chip_smoke.py). tests/test_torch_pipeline.py holds this
-# copy equal to the YAML file.
+# The train/data/vits/gen/mpd/mrd sections of configs/base.yaml, for callers
+# that must not depend on PyYAML (chip_smoke.py). tests/test_torch_pipeline.py
+# holds this copy equal to the YAML file.
 BASE_MODEL_CONFIG = {
+    "train": {
+        "model": "sovits",
+        "seed": 1234,
+        "epochs": 10000,
+        "learning_rate": 5.0e-5,
+        "betas": [0.8, 0.99],
+        "lr_decay": 0.999875,
+        "eps": 1.0e-9,
+        "batch_size": 16,
+        "accum_step": 2,
+        "nan_guard": True,
+        "nan_autoresume": False,
+        "nan_lr_factor": 0.5,
+        "nan_max_restarts": 2,
+        "clip_grad_value": None,
+        "c_stft": 9,
+        "c_mel": 1.0,
+        "c_kl": 0.2,
+        "pretrain": "",
+    },
     "data": {
         "training_files": "files/train.txt",
         "validation_files": "files/valid.txt",
@@ -72,5 +92,15 @@ BASE_MODEL_CONFIG = {
         "upsample_initial_channel": 320,
         "resblock_kernel_sizes": [3, 7, 11],
         "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+    },
+    "mpd": {
+        "periods": [2, 3, 5, 7, 11],
+        "kernel_size": 5,
+        "stride": 3,
+        "lReLU_slope": 0.2,
+    },
+    "mrd": {
+        "resolutions": [[1024, 120, 600], [2048, 240, 1200], [4096, 480, 2400], [512, 50, 240]],
+        "lReLU_slope": 0.2,
     },
 }
