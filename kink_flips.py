@@ -1,32 +1,33 @@
-"""How one ReLU-branch flip moves float32 gradients.
+#!/usr/bin/env python3
+"""How one ReLU-branch flip moves float32 gradients, on one NVIDIA GPU.
 
-    python -m whisper_vits_svc_tpu_torch.train.kink_flips [--device cpu]
+    python3 kink_flips.py
 
 The discriminators are piecewise linear: a leaky-ReLU input that lies within
 float32 rounding of zero can take the other branch in another summation
 order, and the gradient at that element then changes by (1 - slope) times
 its size, whatever the precision. This drives the period-7 MPD
-(base-width channels, seeded weights) on several seeded random inputs, in
-float32 on `device` and in float32 on the CPU, each against float64 on the
-CPU, and prints per layer: the pre-activations' relative L2 error, how many
-of them took the other branch, the relative L2 error of the gradient at
-each pre-activation, and the worst parameter gradient's. It is why
+(base-width channels, seeded weights) on 8 seeded random inputs, in float32
+on the card and in float32 on the CPU, each against float64 on the CPU, and
+prints per layer: the pre-activations' relative L2 error, how many of them
+took the other branch, the relative L2 error of the gradient at each
+pre-activation, and the worst parameter gradient's. It is why
 chip_smoke.py's card-vs-CPU gradient check makes the CPU take the card's
 branches.
 """
 
 from __future__ import annotations
 
-import argparse
 import copy
+import sys
 
 import torch
 import torch.nn.functional as F
 
-from ..models.discriminator import DiscriminatorP
-from ..utils.device import resolve_device
+from whisper_vits_svc_tpu_torch.models.discriminator import DiscriminatorP
+from whisper_vits_svc_tpu_torch.utils.device import resolve_device
 
-PERIOD, BATCH, SAMPLES = 7, 4, 8000
+PERIOD, BATCH, SAMPLES, SEEDS = 7, 4, 8000, 8
 
 
 def _run(model: DiscriminatorP, x: torch.Tensor):
@@ -45,29 +46,24 @@ def _run(model: DiscriminatorP, x: torch.Tensor):
     return [z.detach().double().cpu() for z in zs], [g.double().cpu() for g in grads]
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--seeds", type=int, default=8, help="random inputs to try")
-    args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
+def main() -> int:
+    card = resolve_device("cuda")  # raises without CUDA; TF32 off
     model = DiscriminatorP(PERIOD)
     gen = torch.Generator().manual_seed(0)
     for conv in [*model.convs, model.conv_post]:
         conv.init_weights(gen)
-    model64, model_dev = copy.deepcopy(model).double(), copy.deepcopy(model).to(dev)
+    model64, model_card = copy.deepcopy(model).double(), copy.deepcopy(model).to(card)
 
     def rel(a, b):
         return f"{float((a - b).norm() / b.norm()):.1e}"
 
-    for seed in range(args.seeds):
+    for seed in range(SEEDS):
         x = torch.randn(BATCH, 1, SAMPLES, generator=torch.Generator().manual_seed(seed)) * 0.2
         ref_z, ref_g = _run(model64, x.double())
         if seed == 0:
             print(f"period-{PERIOD} MPD, pre-activations per layer "
                   f"{[z.numel() for z in ref_z]}; each side against cpu float64")
-        for name, m, xx in (("cpu float32", model, x), (f"{dev.type} float32", model_dev,
-                                                        x.to(dev))):
+        for name, m, xx in (("cpu float32", model, x), ("cuda float32", model_card, x.to(card))):
             zs, grads = _run(m, xx)
             n = len(zs)
             flips = [int(((a > 0) != (b > 0)).sum()) for a, b in zip(zs, ref_z)]
@@ -81,4 +77,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    sys.exit(main())

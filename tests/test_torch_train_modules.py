@@ -300,12 +300,3 @@ def test_transformer_dropout_only_in_training():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert (a - base).abs().max() > 1e-3
 
-
-def test_kink_flips_tool_runs_on_cpu(capsys):
-    """The branch-flip diagnostic behind chip_smoke.py's gradient bound: on
-    the CPU it compares float32 with float64 per layer."""
-    from whisper_vits_svc_tpu_torch.train import kink_flips
-
-    assert kink_flips.main(["--device", "cpu", "--seeds", "1"]) == 0
-    out = capsys.readouterr().out
-    assert "pre-activations per layer" in out and out.count("branch flips") == 2
