@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero without the final line):
 1. device: CUDA must be present (no CPU fallback); prints the card's name and
    power limit from nvidia-smi;
-2. build: compiles csrc/snake_alias.cu and csrc/snake_alias_bwd.cu with nvcc,
-   one process per source, started together, and times the build;
+2. build: compiles the five sources under csrc/ (snake_alias, snake_alias_bwd,
+   snake_alias_strips, snake_alias_mma, amp_iter) with nvcc, one process per
+   source, started together, and times the build;
 3. kernel vs plain: the snake kernel against its plain PyTorch version at the
    five base-width stage shapes of a 1020-frame chunk and at odd shapes, in
    float32 and bfloat16, with CUDA-event times (inputs rotated over >100 MB
@@ -44,6 +45,25 @@ Phases (any failure exits non-zero without the final line):
    respect to the audio, and every parameter gradient of the step, within
    relative L2 1e-3.
 
+9. alternative kernels vs plain: the strips and the mma snake kernels at the
+   five stage shapes, at odd shapes and at the JAX package's strips test
+   shapes, float32 and bfloat16: strips bitwise equal to the direct kernel,
+   mma within the float32 tolerance of the direct kernel and of the plain
+   version, with the direct kernel's time on the same inputs beside theirs;
+   the fused AMP iteration against its plain version at the 18 (shape, k, d)
+   cases of a chunk, at the JAX package's test shapes and at odd ones (T
+   shorter than the halo, T = 1, C = 32, B = 2), with its time, its bound
+   and the time of the unfused route (two direct snake launches, two cuDNN
+   float32 convolutions, the add);
+10. alternative configurations: the same seeded weights through `svc_infer`
+   with `amp_fused_iter=True`, `snake_variant="strips"` and
+   `snake_variant="mma"` (1230, 200 and 1000 frames: 4 chunks each), every
+   count set to 0 before each path; checks the launches per chunk (18
+   amp_iter + 55 direct; 37 strips + 54 direct; 91 mma), each waveform
+   within 5e-5 of the default configuration's on the card, and the fused
+   one against the CPU on the 200-frame request; prints wall ms, the
+   realtime factor and device ms per chunk beside the default's.
+
 Then prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -64,9 +84,10 @@ from whisper_vits_svc_tpu_torch.infer import pipeline
 from whisper_vits_svc_tpu_torch.infer.retrieval import DummyRetrieval
 from whisper_vits_svc_tpu_torch.models.synthesizer import slice_segments
 from whisper_vits_svc_tpu_torch.nn.snake import snake_alias_fused_cm
-from whisper_vits_svc_tpu_torch.ops import snake_cuda
+from whisper_vits_svc_tpu_torch.ops import amp_cuda, snake_cuda
 from whisper_vits_svc_tpu_torch.train import step as tstep
 from whisper_vits_svc_tpu_torch.utils.config import BASE_MODEL_CONFIG, config_from_dict
+from whisper_vits_svc_tpu_torch.utils.device import resolve_device
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 outside
 # the tensor cores
@@ -124,10 +145,43 @@ BWD_ODD_SHAPES = ((1, 10, 700), (2, 16, 1024), (1, 3, 130), (2, 20, 4000))
 TRAIN_FRAMES = 300  # 3 s utterances, as bench_train.py:22
 TIMED_STEPS = 4
 CHECK_BATCH, CHECK_FRAMES, CHECK_SLICE_IDS = 2, 100, (0, 61)
+# the JAX package's fused-iteration and strips test shapes
+# (tests/test_snake_fused.py:230-231, :297-298) and odd ones: T no multiple of
+# anything, T shorter than the halo, T = 1, C = 32, B = 2
+AMP_ODD_CASES = ((1, 10, 1280, 3, 1), (2, 16, 1024, 7, 3), (1, 12, 2560, 11, 5),
+                 (1, 10, 1279, 7, 3), (1, 10, 30, 11, 5), (1, 10, 1, 11, 5),
+                 (2, 32, 3000, 11, 5))
+STRIPS_ODD_SHAPES = ((2, 10, 5120), (2, 20, 6400), (2, 6, 8192), (2, 10, 3200))
+# fused iteration vs plain in f32, as the JAX package holds its kernel
+# (tests/test_snake_fused.py:242)
+AMP_F32_TOL = dict(atol=2e-5, rtol=1e-5)
+ALT_REQUEST_FRAMES = (1230, 200, 1000)  # 2 + 1 + 1 chunks
+# launches per 1020-frame chunk at base width: the fused iteration takes the
+# C = 20 and C = 10 stages (2 x 9 iterations, 36 of the 91 snakes); strips
+# takes the same stages' 36 snakes and activation_post; mma takes every snake
+ALT_LAUNCHES_PER_CHUNK = {
+    "fused": dict(amp=18, direct=55),
+    "strips": dict(strips=37, direct=54),
+    "mma": dict(mma=91),
+}
+ALT_CONFIGS = {
+    "fused": dict(amp_fused_iter=True),
+    "strips": dict(snake_variant="strips"),
+    "mma": dict(snake_variant="mma"),
+}
+SNAKE_KERNELS = {"direct": snake_cuda.snake_alias_cuda,
+                 "strips": snake_cuda.snake_alias_strips_cuda,
+                 "mma": snake_cuda.snake_alias_mma_cuda}
 REPLACES = "whisper_vits_svc_tpu/ops/pallas_snake.py:596"
 SOURCE = "whisper_vits_svc_tpu_torch/csrc/snake_alias.cu"
 REPLACES_BWD = "whisper_vits_svc_tpu/ops/pallas_snake.py:438"
 SOURCE_BWD = "whisper_vits_svc_tpu_torch/csrc/snake_alias_bwd.cu"
+REPLACES_AMP = "whisper_vits_svc_tpu/ops/pallas_amp.py:157"
+SOURCE_AMP = "whisper_vits_svc_tpu_torch/csrc/amp_iter.cu"
+REPLACES_STRIPS = "whisper_vits_svc_tpu/ops/pallas_snake.py:539"
+SOURCE_STRIPS = "whisper_vits_svc_tpu_torch/csrc/snake_alias_strips.cu"
+REPLACES_MMA = "whisper_vits_svc_tpu/ops/pallas_snake.py:280"
+SOURCE_MMA = "whisper_vits_svc_tpu_torch/csrc/snake_alias_mma.cu"
 
 
 def check(ok: bool, msg: str) -> None:
@@ -170,28 +224,114 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(byte_s, op_s) * 1e3, ("bytes" if byte_s >= op_s else "operations")
 
 
-def check_kernel(shape, dtype, seed: int) -> dict:
-    """Kernel vs plain on the same inputs; returns errors and times."""
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    snake_cuda.launches = snake_cuda.launches_bwd = 0
+    snake_cuda.launches_strips = snake_cuda.launches_mma = 0
+    amp_cuda.launches = 0
+
+
+def read_counts() -> dict:
+    return dict(direct=snake_cuda.launches, bwd=snake_cuda.launches_bwd,
+                strips=snake_cuda.launches_strips, mma=snake_cuda.launches_mma,
+                amp=amp_cuda.launches)
+
+
+def snake_inputs(shape, dtype, seed: int):
+    """(rotating inputs over >100 MB, alpha, beta) for one snake shape."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, c, t = shape
     alpha = torch.randn(c, device="cuda", generator=g) * 0.3
     beta = torch.randn(c, device="cuda", generator=g) * 0.3
     n_buf = max(1, -(-100_000_000 // (b * c * t * 4)))
     xs = [(torch.randn(shape, device="cuda", generator=g) * 1.5).to(dtype) for _ in range(n_buf)]
-    got = snake_cuda.snake_alias_cuda(xs[0], alpha, beta)
+    return xs, alpha, beta
+
+
+def check_kernel(shape, dtype, seed: int, variant: str = "direct") -> dict:
+    """A forward snake kernel vs plain on the same inputs; "strips" and "mma"
+    also vs the direct kernel (strips bitwise), with its time on the same
+    inputs. Returns errors and times."""
+    fn = SNAKE_KERNELS[variant]
+    xs, alpha, beta = snake_inputs(shape, dtype, seed)
+    b, c, t = shape
+    n_buf = len(xs)
+    got = fn(xs[0], alpha, beta)
     want = snake_alias_fused_cm(xs[0].float(), alpha, beta).to(dtype)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     check(torch.allclose(got.float(), want.float(), **tol),
-          f"snake kernel disagrees at {shape} {dtype}: max abs err {err}")
+          f"snake {variant} kernel disagrees at {shape} {dtype}: max abs err {err}")
     iters = 50 if b * c * t < 2_000_000 else 20
-    k_ms = cuda_ms(lambda i=0: snake_cuda.snake_alias_cuda(xs[i % n_buf], alpha, beta), iters)
-    p_ms = cuda_ms(lambda i=0: snake_alias_fused_cm(xs[i % n_buf], alpha, beta), iters)
+    row = dict(shape=list(shape), dtype=str(dtype).removeprefix("torch."), max_abs_err=err)
+    if variant != "direct":
+        direct = snake_cuda.snake_alias_cuda(xs[0], alpha, beta)
+        row["vs_direct"] = (got.float() - direct.float()).abs().max().item()
+        same = (torch.equal(got, direct) if variant == "strips"
+                else torch.allclose(got.float(), direct.float(), **tol))
+        check(same, f"snake {variant} kernel against direct at {shape} {dtype}: max abs diff "
+                    f"{row['vs_direct']}" + (", not bitwise equal" if variant == "strips" else ""))
+        row["direct_ms"] = cuda_ms(
+            lambda i=0: snake_cuda.snake_alias_cuda(xs[i % n_buf], alpha, beta), iters)
+        if variant == "strips":
+            row["fold"] = snake_cuda.strip_fold(c, t, b)
+            # any fold: segments that end inside a tile
+            odd = snake_cuda.snake_alias_strips_cuda(xs[0], alpha, beta, fold=min(7, t))
+            check(torch.equal(odd, direct),
+                  f"snake strips kernel with fold 7 is not bitwise equal to direct at {shape}")
+    row["kernel_ms"] = cuda_ms(lambda i=0: fn(xs[i % n_buf], alpha, beta), iters)
+    row["plain_ms"] = cuda_ms(lambda i=0: snake_alias_fused_cm(xs[i % n_buf], alpha, beta), iters)
     n = b * c * t
-    bnd, by = bound_ms(2 * n * xs[0].element_size(), n * SNAKE_OPS_PER_ELEM)
-    return dict(shape=list(shape), dtype=str(dtype).removeprefix("torch."), max_abs_err=err,
-                kernel_ms=k_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by)
+    row["bound_ms"], row["bound_by"] = bound_ms(2 * n * xs[0].element_size(),
+                                                n * SNAKE_OPS_PER_ELEM)
+    return row
+
+
+def amp_unfused(x, k1, b1, a1, be1, k2, b2, a2, be2, kernel_size: int, d: int):
+    """One AMP iteration as the default path runs it on the card: two direct
+    snake launches, two cuDNN convolutions (float32, TF32 off), the add."""
+    xt = snake_cuda.snake_alias_cuda(x, a1, be1)
+    xt = F.conv1d(xt, k1, b1, padding=(kernel_size * d - d) // 2, dilation=d)
+    xt = snake_cuda.snake_alias_cuda(xt, a2, be2)
+    return F.conv1d(xt, k2, b2, padding=(kernel_size - 1) // 2) + x
+
+
+def check_amp(case, dtype, seed: int, timed: bool) -> dict:
+    """amp_iter vs amp_iter_ref on the same inputs; with `timed` also the
+    kernel's, the plain version's and the unfused route's times."""
+    b, c, t, k, d = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    params = (r(c, c, k) * 0.1, r(c) * 0.1, r(c) * 0.3, r(c) * 0.3,
+              r(c, c, k) * 0.1, r(c) * 0.1, r(c) * 0.3, r(c) * 0.3)
+    n_buf = max(1, -(-100_000_000 // (b * c * t * 4))) if timed else 1
+    xs = [r(b, c, t).to(dtype) for _ in range(n_buf)]
+    got = amp_cuda.amp_iter_cuda(xs[0], *params, k, d)
+    want = amp_cuda.amp_iter_ref(xs[0].float(), *params, k, d).to(dtype)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = AMP_F32_TOL if dtype == torch.float32 else BF16_TOL
+    check(torch.allclose(got.float(), want.float(), **tol),
+          f"amp_iter disagrees at {case} {dtype}: max abs err {err}")
+    n = b * c * t
+    # x read once, out written once, both kernels, biases and snake parameters
+    # read; per element two k-tap C x C mixes (2 k C FMAs = 4 k C operations)
+    # and two snakes (2 x 58)
+    bnd, by = bound_ms(2 * n * xs[0].element_size() + 4 * (2 * k * c * c + 6 * c),
+                       n * (4 * k * c + 2 * SNAKE_OPS_PER_ELEM))
+    row = dict(case=list(case), dtype=str(dtype).removeprefix("torch."), max_abs_err=err,
+               tile=amp_cuda.amp_tile(c, k, d), bound_ms=bnd, bound_by=by)
+    if timed:
+        row["kernel_ms"] = cuda_ms(
+            lambda i=0: amp_cuda.amp_iter_cuda(xs[i % n_buf], *params, k, d), 20)
+        row["unfused_ms"] = cuda_ms(lambda i=0: amp_unfused(xs[i % n_buf], *params, k, d), 20)
+        row["plain_ms"] = cuda_ms(
+            lambda i=0: amp_cuda.amp_iter_ref(xs[i % n_buf], *params, k, d), 10)
+    return row
 
 
 def check_bwd_kernel(shape, dtype, seed: int) -> dict:
@@ -232,17 +372,139 @@ def check_bwd_kernel(shape, dtype, seed: int) -> dict:
                 bound_ms=bnd, bound_by=by)
 
 
-def per_call_sum(rows, stages) -> tuple[dict, str]:
-    """Kernel, plain and bound ms summed over the calls of `stages`, f32."""
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+def per_call_sum(rows, stages, extra: tuple[str, ...] = ()) -> tuple[dict, str]:
+    """Kernel, plain and bound ms (and any `extra` column) summed over the
+    calls of `stages`, f32."""
+    columns = {"ms": "kernel_ms", "plain_ms": "plain_ms", "bound_ms": "bound_ms"}
+    columns |= {name: name for name in extra}
+    total = dict.fromkeys(columns, 0.0)
     bound_by = set()
     for shape, calls in stages:
         r = next(r for r in rows if r["shape"] == list(shape) and r["dtype"] == "float32")
-        total["ms"] += calls * r["kernel_ms"]
-        total["plain_ms"] += calls * r["plain_ms"]
-        total["bound_ms"] += calls * r["bound_ms"]
+        for name, column in columns.items():
+            total[name] += calls * r[column]
         bound_by.add(r["bound_by"])
     return total, "/".join(sorted(bound_by))
+
+
+def alt_kernel_phase(hp, stages) -> dict:
+    """The strips, mma and fused-iteration kernels against their plain
+    versions; per-chunk sums over the calls each takes on its path."""
+    out = {}
+    both = (torch.float32, torch.bfloat16)
+    shapes = [shape for shape, _ in stages] + list(ODD_SHAPES) + list(STRIPS_ODD_SHAPES)
+    for variant in ("strips", "mma"):
+        rows = [check_kernel(shape, dtype, seed=400 + i, variant=variant)
+                for i, shape in enumerate(shapes) for dtype in both]
+        for r in rows:
+            print(f"[kernel-{variant}] " + json.dumps(r), flush=True)
+        taken = [(shape, calls) for shape, calls in stages
+                 if variant == "mma" or snake_cuda.use_strips(shape[1], shape[2], shape[0])]
+        total, by = per_call_sum(rows, taken, extra=("direct_ms",))
+        n_calls = sum(calls for _, calls in taken)
+        print(f"[kernel-{variant}] per {CHUNK_FRAMES}-frame chunk, f32, the {n_calls} calls "
+              f"the variant takes: {json.dumps(total)}", flush=True)
+        out |= {variant: total, f"{variant}_rows": rows, f"{variant}_bound_by": by,
+                f"{variant}_calls": n_calls}
+
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on for the plain convolutions")
+    cases = [(b, c, t, k, d) for (b, c, t), _ in stages if amp_cuda.use_fused_iter(c, t, b)
+             for k, dil in zip(hp.gen.resblock_kernel_sizes, hp.gen.resblock_dilation_sizes)
+             for d in dil]
+    rows = []
+    for i, case in enumerate(cases):
+        rows.append(check_amp(case, torch.float32, seed=500 + i, timed=True))
+        rows.append(check_amp(case, torch.bfloat16, seed=500 + i, timed=False))
+    for i, case in enumerate(AMP_ODD_CASES):
+        rows += [check_amp(case, dtype, seed=600 + i, timed=False) for dtype in both]
+    for r in rows:
+        print("[kernel-amp] " + json.dumps(r), flush=True)
+    timed = [r for r in rows if "kernel_ms" in r]
+    total = {name: sum(r[column] for r in timed)
+             for name, column in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
+                                  ("bound_ms", "bound_ms"), ("unfused_ms", "unfused_ms"))}
+    print(f"[kernel-amp] per {CHUNK_FRAMES}-frame chunk, f32, {len(timed)} calls: "
+          f"{json.dumps(total)}", flush=True)
+    out |= {"amp": total, "amp_rows": rows, "amp_calls": len(timed),
+            "amp_bound_by": "/".join(sorted({r["bound_by"] for r in timed}))}
+    return out
+
+
+def alt_config_phase(hp, model, cpu_model, short_req, cpu_audio) -> dict:
+    """`svc_infer` with the default model's weights in each alternative
+    configuration: launches per chunk, waveforms against the default
+    configuration's, wall and device time beside the default's; the fused
+    configuration also against the CPU on `short_req` (out_chunk=200)."""
+    hop, sr = hp.data.hop_length, hp.data.sampling_rate
+    reqs = [features(hp, frames, seed=10 + i) for i, frames in enumerate(ALT_REQUEST_FRAMES)]
+    n_chunks = sum(len(pipeline._chunk_plan(f, 1000, 10)) for f in ALT_REQUEST_FRAMES)
+    audio_s = sum(ALT_REQUEST_FRAMES) * hop / sr
+    run = dict(hp=hp, device="cuda")
+
+    def drive(m, label):
+        pipeline.svc_infer(m, DummyRetrieval(), *reqs[1], **run)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        audios, walls = [], []
+        for frames, req in zip(ALT_REQUEST_FRAMES, reqs):
+            t0 = time.perf_counter()
+            audio = pipeline.svc_infer(m, DummyRetrieval(), *req, **run)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            rms = float(np.sqrt(np.mean(np.square(audio))))
+            check(audio.shape == (frames * hop,), f"{label}: output shape {audio.shape}")
+            check(bool(np.isfinite(audio).all()), f"{label}: non-finite samples")
+            check(rms > 1e-3, f"{label}: silent output (rms {rms})")
+            audios.append(audio)
+        counts = read_counts()
+        prof = profile(lambda: pipeline.svc_infer(m, DummyRetrieval(), *reqs[1], **run))
+        return dict(audios=audios, walls=walls, counts=counts, device_ms=prof["busy_ms"],
+                    kinds=prof["kinds"])
+
+    def report(label, r):
+        wall = sum(r["walls"])
+        print(f"[requests-{label}] {n_chunks} chunks ({audio_s:.2f} s audio): wall ms "
+              f"{[round(w, 2) for w in r['walls']]}, realtime x{audio_s / (wall / 1e3):.2f}, "
+              f"device {r['device_ms']:.2f} ms per chunk (200-frame request, profiler on), "
+              f"launches {json.dumps(r['counts'])}, device ms by kind "
+              + json.dumps({k: round(v, 3) for k, v in r["kinds"].items() if v}), flush=True)
+
+    base = drive(model, "default")
+    check(base["counts"] == dict(direct=91 * n_chunks, bwd=0, strips=0, mma=0, amp=0),
+          f"default configuration launches {base['counts']}")
+    report("default", base)
+    out = {"default": base}
+    for label, kwargs in ALT_CONFIGS.items():
+        m = pipeline.build_infer_model(hp, device="cuda", seed=0, **kwargs)
+        m.load_state_dict(model.state_dict())
+        r = drive(m, label)
+        want = dict(direct=0, bwd=0, strips=0, mma=0, amp=0) | {
+            k: v * n_chunks for k, v in ALT_LAUNCHES_PER_CHUNK[label].items()}
+        check(r["counts"] == want, f"{label} configuration launches {r['counts']}, "
+                                   f"expected {want}")
+        r["err"] = max(float(np.abs(a - b).max()) for a, b in zip(r["audios"], base["audios"]))
+        check(r["err"] <= CARD_VS_CPU_ATOL,
+              f"{label} configuration vs default on the card: max abs err {r['err']}")
+        report(label, r)
+        print(f"[requests-{label}] vs the default configuration on the card: max abs err "
+              f"{r['err']:.3e} (tolerance {CARD_VS_CPU_ATOL})", flush=True)
+        if label == "fused":
+            short = dict(hp=hp, out_chunk=200)
+            card = pipeline.svc_infer(m, DummyRetrieval(), *short_req, device="cuda", **short)
+            cpu_m = pipeline.build_infer_model(hp, device="cpu", seed=0, **kwargs)
+            cpu_m.load_state_dict(cpu_model.state_dict())
+            cpu = pipeline.svc_infer(cpu_m, DummyRetrieval(), *short_req, device="cpu", **short)
+            err = float(np.abs(card - cpu).max())
+            same = float(np.abs(cpu - cpu_audio).max())
+            print(f"[requests-fused] card vs CPU (amp_iter_ref), 200 frames: max abs err "
+                  f"{err:.3e} (tolerance {CARD_VS_CPU_ATOL}); the CPU's fused and default "
+                  f"configurations differ by {same:.3e}", flush=True)
+            check(err <= CARD_VS_CPU_ATOL, f"fused configuration card vs CPU: {err}")
+            del cpu_m
+        del r["audios"], m
+        out[label] = r
+    del base["audios"]
+    return out
 
 
 def features(hp, frames: int, seed: int):
@@ -280,6 +542,9 @@ def train_batch(hp, batch: int, frames: int, seed: int) -> dict:
 KERNEL_KINDS = (
     ("snake_bwd", ("snake_alias_bwd",)),
     ("snake_fwd", ("snake_alias_kernel",)),
+    ("snake_strips", ("snake_alias_strips_kernel",)),
+    ("snake_mma", ("snake_alias_mma_kernel",)),
+    ("amp_iter", ("amp_iter_kernel",)),
     ("conv", ("cudnn", "xmma", "implicit_gemm", "wgrad", "dgrad", "conv")),
     ("matmul", ("gemm", "cutlass", "sm90_")),
     ("optimizer", ("multi_tensor_apply",)),
@@ -511,10 +776,13 @@ def main() -> int:
     print(f"[device] {name} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
+    resolve_device("cuda")  # TF32 off: the plain versions' convolutions run in float32
     t0 = time.perf_counter()
     libs = snake_cuda.build()
-    snake_cuda._library()
-    snake_cuda._library_bwd()
+    for load in (snake_cuda._library, snake_cuda._library_bwd, snake_cuda._library_strips,
+                 snake_cuda._library_mma, amp_cuda._library):
+        load()
+    check(len(libs) == 5, f"{len(libs)} kernel libraries built, expected 5")
     print(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
@@ -558,13 +826,15 @@ def main() -> int:
     print(f"[kernel-train] forward per training step, f32, {n_train_calls} calls: "
           f"{json.dumps(fwd_per_step)}; backward {json.dumps(per_step)}", flush=True)
 
+    alt = alt_kernel_phase(hp, stages)
+
     # requests at full base width on the card
     model = pipeline.build_infer_model(hp, device="cuda", seed=0)
     run = dict(hp=hp, device="cuda")
     reqs = [features(hp, frames, seed=i) for i, frames in enumerate(REQUEST_FRAMES)]
     pipeline.svc_infer(model, DummyRetrieval(), *reqs[-1], **run)  # warm-up
     torch.cuda.synchronize()
-    snake_cuda.launches = snake_cuda.launches_bwd = 0
+    reset_counts()
     total_chunks, total_audio_s, total_wall_s = 0, 0.0, 0.0
     for frames, (spk, pit, ppg, vec) in zip(REQUEST_FRAMES, reqs):
         t0 = time.perf_counter()
@@ -583,10 +853,13 @@ def main() -> int:
         print(f"[request] {frames} frames ({audio_s:.2f} s audio, {chunks} chunks): "
               f"{wall * 1e3:.2f} ms wall, realtime x{audio_s / wall:.2f}, rms {rms:.4f}",
               flush=True)
-    launches, infer_bwd = snake_cuda.launches, snake_cuda.launches_bwd
+    counts_default = counts = read_counts()
+    launches, infer_bwd = counts["direct"], counts["bwd"]
     check(launches == 91 * total_chunks,
           f"{launches} snake launches for {total_chunks} chunks, expected 91 per chunk")
     check(infer_bwd == 0, f"{infer_bwd} backward snake launches during inference")
+    check(counts["strips"] == counts["mma"] == counts["amp"] == 0,
+          f"the default configuration launched an alternative kernel: {counts}")
     print(f"[requests] {total_chunks} chunks, snake launches {launches} "
           f"(91 per chunk), realtime x{total_audio_s / total_wall_s:.2f} overall", flush=True)
 
@@ -610,15 +883,21 @@ def main() -> int:
     print(f"[card-vs-cpu] 200 frames: max abs err {err:.3e} (tolerance {CARD_VS_CPU_ATOL}), "
           f"cpu {cpu_s:.2f} s", flush=True)
     check(err <= CARD_VS_CPU_ATOL, f"card vs CPU max abs err {err}")
+
+    # the three alternative configurations of the same weights
+    alt_runs = alt_config_phase(hp, model, cpu_model, reqs[-1], cpu)
     del model, cpu_model
 
     # training steps at full base width on the card
-    snake_cuda.launches = snake_cuda.launches_bwd = 0
+    reset_counts()
     tr = train_phase(hp)
-    train_fwd, train_bwd = snake_cuda.launches, snake_cuda.launches_bwd
+    counts = read_counts()
+    train_fwd, train_bwd = counts["direct"], counts["bwd"]
     n_steps = TIMED_STEPS + 2  # warm-up, timed, profiled
     check(train_fwd == 91 * n_steps and train_bwd == 91 * n_steps,
           f"{train_fwd} forward / {train_bwd} backward snake launches in {n_steps} steps")
+    check(counts["strips"] == counts["mma"] == counts["amp"] == 0,
+          f"the training step launched an alternative kernel: {counts}")
     ms_step = float(np.mean(tr["step_ms"]))
     utt_s = hp.train.batch_size / (ms_step / 1e3)
     print(f"[train] {TIMED_STEPS} timed steps, batch {hp.train.batch_size} x {TRAIN_FRAMES} "
@@ -689,6 +968,38 @@ def main() -> int:
                f"{seg_frames}-frame segments), float32, {n_train_calls} calls",
         "launches_by_path": {"svc_infer": infer_bwd, "train_step": train_bwd},
     }]
+    chunk = f"one {CHUNK_FRAMES}-frame chunk at base width, float32"
+    fused_run = alt_runs["fused"]
+    kernels.append({
+        "name": "amp_iter", "route": "cuda", "source": SOURCE_AMP, "replaces": REPLACES_AMP,
+        "launches": fused_run["counts"]["amp"],
+        "max_abs_err": max(r["max_abs_err"] for r in alt["amp_rows"]
+                           if r["dtype"] == "float32"),
+        "ms": alt["amp"]["ms"], "plain_ms": alt["amp"]["plain_ms"],
+        "bound_ms": alt["amp"]["bound_ms"], "bound_by": alt["amp_bound_by"],
+        "library_ms": None, "unfused_ms": alt["amp"]["unfused_ms"],
+        "per": f"{chunk}, {alt['amp_calls']} calls (amp_fused_iter=True)",
+        "launches_by_path": {"svc_infer": counts_default["amp"],
+                             "svc_infer_fused": fused_run["counts"]["amp"],
+                             "train_step": counts["amp"]},
+    })
+    for variant, source, replaces in (("strips", SOURCE_STRIPS, REPLACES_STRIPS),
+                                      ("mma", SOURCE_MMA, REPLACES_MMA)):
+        run, total = alt_runs[variant], alt[variant]
+        kernels.append({
+            "name": f"snake_alias_{variant}", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": run["counts"][variant],
+            "max_abs_err": max(r["max_abs_err"] for r in alt[f"{variant}_rows"]
+                               if r["dtype"] == "float32"),
+            "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": alt[f"{variant}_bound_by"], "library_ms": None,
+            "direct_ms": total["direct_ms"],
+            "per": f"{chunk}, {alt[f'{variant}_calls']} calls "
+                   f"(snake_variant=\"{variant}\")",
+            "launches_by_path": {"svc_infer": counts_default[variant],
+                                 f"svc_infer_{variant}": run["counts"][variant],
+                                 "train_step": counts[variant]},
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -44,6 +44,45 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert res.stdout.strip().splitlines()[-1] == "BAD []", res.stdout
 
 
+def test_kernel_modules_and_sources_stand_alone():
+    """The kernel wrappers (the snake's variants and the fused AMP iteration
+    among them) are modules of the package the probe above imports, and no
+    source under csrc/ or program file of the port names JAX, flax or the
+    JAX package in an import or include."""
+    import re
+
+    pkg = os.path.join(REPO, "whisper_vits_svc_tpu_torch")
+    for module in ("ops/snake_cuda.py", "ops/amp_cuda.py", "nn/amp.py", "nn/snake.py"):
+        assert os.path.isfile(os.path.join(pkg, module)), module
+    bad = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|whisper_vits_svc_tpu)(?:\.|\s|$)",
+                     re.M)
+    checked = 0
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                text = open(os.path.join(root, name), encoding="utf-8").read()
+                assert not bad.search(text), os.path.join(root, name)
+                assert "torch/extension.h" not in text, name
+                checked += 1
+    for script in ("chip_smoke.py", "kink_flips.py", "strip_sweep.py"):
+        assert not bad.search(open(os.path.join(REPO, script), encoding="utf-8").read()), script
+    assert checked >= 30
+
+
+def test_entry_points_keep_the_default_kernels(monkeypatch):
+    """The two switches of build_infer_model default to the direct snake
+    kernel and the unfused AMP blocks, and reach every block when set."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hp = _tiny_hp()
+    model = pipeline.build_infer_model(hp, device="cpu")
+    assert all(not b.fused_iter for b in model.dec.resblocks)
+    assert {m.variant for m in model.modules() if hasattr(m, "variant")} == {"direct"}
+    alt = pipeline.build_infer_model(hp, device="cpu", snake_variant="mma", amp_fused_iter=True)
+    assert all(b.fused_iter for b in alt.dec.resblocks)
+    assert {m.variant for m in alt.modules() if hasattr(m, "variant")} == {"mma"}
+    assert list(alt.state_dict()) == list(model.state_dict())
+
+
 def _tiny_hp():
     return config_from_dict(dict(
         data=dict(sampling_rate=3200, hop_length=8),

@@ -22,8 +22,9 @@
 // us for the stages [160, 5100], [80, 20400], [40, 81600], [20, 163200],
 // [10, 326400].
 //
-// Design: one block per (time tile, c, b). The block stages its x tile plus
-// a 6-sample halo on each side in shared memory (clamped reads give the edge
+// Design: one block per (time tile, c, b); the tile body is
+// snake_alias.cuh::snake_tile, shared with the strips kernel
+// (snake_alias_strips.cu). The block stages its x tile plus a 6-sample halo on each side in shared memory (clamped reads give the edge
 // replication), computes both snake'd phases for the tile plus 3 positions
 // each side into shared memory, then each thread produces outputs from the
 // phases. Every element of x is read from HBM once per tile (plus 12 halo
@@ -31,35 +32,11 @@
 // Built without --use_fast_math: sinf's fast form loses accuracy as |a*u|
 // grows, and the tolerance against the plain version is f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "snake_alias.cuh"
 
 namespace {
 
-constexpr int kTaps = 6;
-constexpr int kTile = 1024;           // outputs per block
-constexpr int kThreads = 256;
-constexpr int kXLen = kTile + 12;     // x positions t0-6 .. t0+kTile+5
-constexpr int kPLen = kTile + 6;      // phase positions t0-3 .. t0+kTile+2
-
-struct Taps {
-  float ae[kTaps], ao[kTaps], de[kTaps], dodd[kTaps];
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-__device__ __forceinline__ float snake(float u, float a, float ib) {
-  const float s = sinf(u * a);
-  return u + ib * (s * s);
-}
-
-template <typename T>
-__device__ __forceinline__ float x_at(const T* row, int p, int len) {
-  return to_f32(row[min(max(p, 0), len - 1)]);
-}
+using namespace snake_alias;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -73,60 +50,10 @@ snake_alias_kernel(const T* __restrict__ x, T* __restrict__ out,
 
   const int c = blockIdx.y;
   const long long row_off = ((long long)blockIdx.z * channels + c) * len;
-  const T* xr = x + row_off;
-  T* outr = out + row_off;
-  const int t0 = blockIdx.x * kTile;
   const float a = expf(alpha[c]);
   const float ib = 1.0f / (expf(beta[c]) + 1e-9f);
-
-  for (int i = threadIdx.x; i < kXLen; i += kThreads) {
-    xs[i] = x_at(xr, t0 - 6 + i, len);
-  }
-  // clamp values of the downsample input: s(se[0]) and s(so[T-1])
-  if (threadIdx.x == 0 && t0 - 3 < 0) {
-    float se = taps.ae[0] * x_at(xr, -3, len);
-    for (int m = 1; m < kTaps; ++m) se = se + taps.ae[m] * x_at(xr, m - 3, len);
-    edge[0] = snake(se, a, ib);
-  }
-  if (threadIdx.x == 32 && t0 + kTile + 2 > len - 1) {
-    float so = taps.ao[0] * x_at(xr, len - 3, len);
-    for (int m = 1; m < kTaps; ++m) so = so + taps.ao[m] * x_at(xr, len - 3 + m, len);
-    edge[1] = snake(so, a, ib);
-  }
-  __syncthreads();
-
-  // phases at p = t0 - 3 + l; x[p - 3 + m] is xs[l + m], x[p - 2 + m] is xs[l + 1 + m]
-  for (int l = threadIdx.x; l < kPLen; l += kThreads) {
-    const int p = t0 - 3 + l;
-    float e, o;
-    if (p < 0) {
-      e = o = edge[0];
-    } else if (p > len - 1) {
-      e = o = edge[1];
-    } else {
-      float se = taps.ae[0] * xs[l];
-      float so = taps.ao[0] * xs[l + 1];
-      for (int m = 1; m < kTaps; ++m) {
-        se = se + taps.ae[m] * xs[l + m];
-        so = so + taps.ao[m] * xs[l + 1 + m];
-      }
-      e = snake(se, a, ib);
-      o = snake(so, a, ib);
-    }
-    ph_e[l] = e;
-    ph_o[l] = o;
-  }
-  __syncthreads();
-
-  // out[t] with t = t0 + j: E[t - 2 + m] is ph_e[j + 1 + m], O[t - 3 + m] is ph_o[j + m]
-  for (int j = threadIdx.x; j < kTile && t0 + j < len; j += kThreads) {
-    float acc = taps.de[0] * ph_e[j + 1] + taps.dodd[0] * ph_o[j];
-    for (int m = 1; m < kTaps; ++m) {
-      acc = acc + taps.de[m] * ph_e[j + 1 + m];
-      acc = acc + taps.dodd[m] * ph_o[j + m];
-    }
-    store(outr + t0 + j, acc);
-  }
+  snake_tile(x + row_off, out + row_off, blockIdx.x * kTile, len, len, a, ib, taps, xs, ph_e,
+             ph_o, edge);
 }
 
 }  // namespace
@@ -139,13 +66,7 @@ extern "C" {
 int snake_alias_forward(const void* x, void* out, const void* alpha, const void* beta,
                         const float* taps, int is_bf16, int batch, int channels, int len,
                         void* stream) {
-  Taps t;
-  for (int m = 0; m < kTaps; ++m) {
-    t.ae[m] = taps[m];
-    t.ao[m] = taps[kTaps + m];
-    t.de[m] = taps[2 * kTaps + m];
-    t.dodd[m] = taps[3 * kTaps + m];
-  }
+  const Taps t = load_taps(taps);
   const dim3 grid((len + kTile - 1) / kTile, channels, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(alpha);

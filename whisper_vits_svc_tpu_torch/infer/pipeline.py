@@ -29,9 +29,15 @@ from ..utils.device import resolve_device
 
 
 def build_infer_model(hp: Config, device: str | torch.device | None = "cuda",
-                      seed: int = 0) -> SynthesizerInfer:
+                      seed: int = 0, snake_variant: str = "direct",
+                      amp_fused_iter: bool = False) -> SynthesizerInfer:
     """The inference graph for `hp`, with random weights made from `seed`
-    (JAX initializers), in eval mode on `device` (the card by default)."""
+    (JAX initializers), in eval mode on `device` (the card by default).
+
+    `snake_variant` ("direct", "strips" or "mma") names the forward snake
+    kernel; `amp_fused_iter` runs each AMP dilation iteration of the narrow
+    stages as one fused kernel. Both keep the parameters and the function of
+    the default path."""
     dev = resolve_device(device)
     model = SynthesizerInfer(
         ppg_dim=hp.vits.ppg_dim,
@@ -49,6 +55,8 @@ def build_infer_model(hp: Config, device: str | torch.device | None = "cuda",
         enc_p_layers=hp.vits.get("enc_p_layers", 6),
         flow_wn_layers=hp.vits.get("flow_wn_layers", 4),
         n_flows=hp.vits.get("n_flows", 4),
+        snake_variant=snake_variant,
+        amp_fused_iter=amp_fused_iter,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -119,6 +119,23 @@ def amp_block(sd: dict, name: str, p: Mapping) -> None:
         _snake(sd, f"{name}.activations.{2 * j + 1}", p[f"act2_{j}"])
 
 
+def amp_iter_args_from_jax(p: Mapping, j: int) -> tuple[torch.Tensor, ...]:
+    """Dilation iteration j of a JAX AMP block's params -> the arguments
+    (k1, b1, a1, be1, k2, b2, a2, be2) of ops/amp_cuda.py::amp_iter: the two
+    kernels with the weight norm folded as the JAX package folds it
+    (g * v / (||v|| + 1e-12), the norm per output channel), in torch's
+    (out, in, tap) order."""
+    def folded(conv: Mapping) -> torch.Tensor:
+        v = np.asarray(conv["v"], np.float32)  # (K, I, O)
+        norm = np.sqrt(np.sum(np.square(v), axis=(0, 1), keepdims=True))
+        return _t(np.transpose(np.asarray(conv["g"]) * v / (norm + 1e-12), (2, 1, 0)))
+
+    c1, c2 = p[f"convs1_{j}"], p[f"convs2_{j}"]
+    act1, act2 = p[f"act1_{j}"]["act"], p[f"act2_{j}"]["act"]
+    return (folded(c1), _t(c1["bias"]), _t(act1["alpha"]), _t(act1["beta"]),
+            folded(c2), _t(c2["bias"]), _t(act2["alpha"]), _t(act2["beta"]))
+
+
 def generator(sd: dict, name: str, p: Mapping) -> None:
     a = p["adapter"]
     sd[f"{name}.adapter.W_scale.weight"] = _t(np.asarray(a["w_scale_kernel"]).T)

@@ -11,6 +11,10 @@ latent gets a +1 sigma perturbation; both draws come from an explicit
 torch.Generator. Public layout: spk [B, spk_dim], x [B, T, C], har_source
 [B, T*hop, 1] or f0_frames [B, T] -> audio [B, T*hop, 1]; the stages run in
 [B, C, T].
+
+`snake_variant` names the forward snake kernel of every SnakeAlias and
+`amp_fused_iter` turns the AMP blocks' fused iteration on (nn/amp.py); both
+are forward-only alternatives of the default path with the same parameters.
 """
 
 from __future__ import annotations
@@ -60,7 +64,8 @@ class Generator(nn.Module):
                  upsample_rates=(5, 4, 4, 2, 2), upsample_kernel_sizes=(15, 8, 8, 4, 4),
                  resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilation_sizes=((1, 3, 5),) * 3, spk_dim: int = 256,
-                 sampling_rate: int = 32000):
+                 sampling_rate: int = 32000, snake_variant: str = "direct",
+                 amp_fused_iter: bool = False):
         super().__init__()
         self.num_kernels = len(resblock_kernel_sizes)
         self.hop = int(math.prod(upsample_rates))
@@ -81,8 +86,8 @@ class Generator(nn.Module):
             else:
                 self.noise_convs.append(Conv1d(1, ch, 1))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
-                self.resblocks.append(AMPBlock(ch, rk, tuple(rd)))
-        self.activation_post = SnakeAlias(ch)
+                self.resblocks.append(AMPBlock(ch, rk, tuple(rd), snake_variant, amp_fused_iter))
+        self.activation_post = SnakeAlias(ch, snake_variant)
         self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
 
     def init_weights(self, generator: torch.Generator) -> None:

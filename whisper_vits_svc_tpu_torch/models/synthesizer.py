@@ -237,7 +237,8 @@ class SynthesizerInfer(nn.Module):
                  upsample_kernel_sizes=(15, 8, 8, 4, 4), upsample_initial_channel: int = 320,
                  resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilation_sizes=((1, 3, 5),) * 3, sampling_rate: int = 32000,
-                 enc_p_layers: int = 6, flow_wn_layers: int = 4, n_flows: int = 4):
+                 enc_p_layers: int = 6, flow_wn_layers: int = 4, n_flows: int = 4,
+                 snake_variant: str = "direct", amp_fused_iter: bool = False):
         super().__init__()
         self.upsample_rates = tuple(upsample_rates)
         self.sampling_rate = sampling_rate
@@ -249,7 +250,8 @@ class SynthesizerInfer(nn.Module):
                                           gin_channels=spk_dim)
         self.dec = Generator(inter_channels, upsample_initial_channel, upsample_rates,
                              upsample_kernel_sizes, resblock_kernel_sizes,
-                             resblock_dilation_sizes, spk_dim, sampling_rate)
+                             resblock_dilation_sizes, spk_dim, sampling_rate,
+                             snake_variant, amp_fused_iter)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Random weights with the JAX package's initializers."""

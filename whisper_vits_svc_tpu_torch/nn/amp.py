@@ -3,6 +3,12 @@
 weight-norm conv -> SnakeAlias -> conv, added to the input. The reference's
 `activations` list interleaves the two snakes: act1 of dilation j is
 `activations.{2j}`, act2 is `activations.{2j+1}`.
+
+`fused_iter=True` runs each dilation iteration as one `amp_iter` call
+(ops/amp_cuda.py) where `use_fused_iter` takes the shape, the counterpart of
+the JAX block's `pallas_fused_iter`. The parameters are the same, so one
+checkpoint serves both forms. The kernel is forward only: on the card the
+fused form raises where autograd would record a graph.
 """
 
 from __future__ import annotations
@@ -20,8 +26,10 @@ def get_padding(kernel_size: int, dilation: int = 1) -> int:
 
 class AMPBlock(nn.Module):
     def __init__(self, channels: int, kernel_size: int = 3,
-                 dilation: tuple[int, ...] = (1, 3, 5)):
+                 dilation: tuple[int, ...] = (1, 3, 5), snake_variant: str = "direct",
+                 fused_iter: bool = False):
         super().__init__()
+        self.kernel_size, self.dilation, self.fused_iter = kernel_size, tuple(dilation), fused_iter
         self.convs1 = nn.ModuleList(
             Conv1d(channels, channels, kernel_size, dilation=d,
                    padding=get_padding(kernel_size, d), weight_norm=True)
@@ -30,7 +38,8 @@ class AMPBlock(nn.Module):
             Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, 1),
                    weight_norm=True)
             for _ in dilation)
-        self.activations = nn.ModuleList(SnakeAlias(channels) for _ in range(2 * len(dilation)))
+        self.activations = nn.ModuleList(SnakeAlias(channels, snake_variant)
+                                         for _ in range(2 * len(dilation)))
 
     def init_weights(self, generator: torch.Generator) -> None:
         for c1, c2 in zip(self.convs1, self.convs2):
@@ -39,6 +48,16 @@ class AMPBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, C, T] -> [B, C, T]."""
+        if self.fused_iter:
+            from ..ops.amp_cuda import amp_iter, use_fused_iter
+
+            if use_fused_iter(x.shape[1], x.shape[2], x.shape[0]):
+                for j, (c1, c2, d) in enumerate(zip(self.convs1, self.convs2, self.dilation)):
+                    act1, act2 = self.activations[2 * j].act, self.activations[2 * j + 1].act
+                    x = amp_iter(x, c1.kernel(), c1.bias, act1.alpha, act1.beta,
+                                 c2.kernel(), c2.bias, act2.alpha, act2.beta,
+                                 self.kernel_size, d)
+                return x
         for j, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
             xt = c1(self.activations[2 * j](x))
             xt = c2(self.activations[2 * j + 1](xt))

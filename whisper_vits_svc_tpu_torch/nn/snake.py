@@ -186,13 +186,15 @@ class SnakeAlias(nn.Module):
     """x2 up -> SnakeBeta -> x2 down on [B, C, T] with exact edges.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (ops/snake_cuda.py), at every shape."""
+    (ops/snake_cuda.py), at every shape. `variant` names the forward kernel:
+    "direct", "strips" or "mma" (the last two forward only)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, variant: str = "direct"):
         super().__init__()
+        self.variant = variant
         self.act = SnakeBeta(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from ..ops.snake_cuda import snake_alias
 
-        return snake_alias(x, self.act.alpha, self.act.beta)
+        return snake_alias(x, self.act.alpha, self.act.beta, self.variant)
