@@ -8,19 +8,30 @@ Phases (any failure exits non-zero without the final line):
    power limit from nvidia-smi;
 2. build: compiles the five sources under csrc/ (snake_alias, snake_alias_bwd,
    snake_alias_strips, snake_alias_mma, amp_iter) with nvcc, one process per
-   source, started together, and times the build;
+   source, started together, and times the build; where build/prev_kernels/
+   holds an earlier version's snake_alias.cu, snake_alias.cuh and
+   snake_alias_bwd.cu (a copy kept out of git), builds those two sources in
+   the same batch;
 3. kernel vs plain: the snake kernel against its plain PyTorch version at the
    five base-width stage shapes of a 1020-frame chunk and at odd shapes, in
    float32 and bfloat16, with CUDA-event times (inputs rotated over >100 MB
    so that the 50 MB L2 is cold; in the pipeline the input may still sit in
-   L2 after the convolution that wrote it);
+   L2 after the convolution that wrote it); with build/prev_kernels/, the
+   earlier kernel timed on the same inputs in turns (new, old, old, new);
 4. backward kernel vs plain: the snake backward kernel against
    torch.autograd.grad of the plain version at the five stage shapes of a
    training step (batch 16, 25-frame segments) and at the JAX package's test
    shapes, float32 and bfloat16; dalpha and dbeta must be bitwise equal
-   across two calls; CUDA-event times as in phase 3; the forward kernel
-   against its plain version at the same five training shapes, as in
-   phase 3;
+   across two calls; CUDA-event times as in phase 3 (the earlier kernel's
+   beside them);
+   the forward kernel against its plain version at the same five training
+   shapes, as in phase 3;
+4b. the corners of the kernels' work plan, forward and backward, float32
+   and bfloat16, untimed: packed and misaligned rows (T = 1, T < 12,
+   T = 32 * 8 +- 1, odd T with B * C no multiple of a block's 8 warps, the
+   JAX package's backward test shapes), a tensor whose start is not 16-byte
+   aligned, and large arguments (x * 100, e^alpha up to 4.5, beta down to
+   -3: |e^alpha u| ~ 1e3, 1 / e^beta ~ 20), at the same tolerances;
 5. requests: seeded random weights at full configs/base.yaml width through
    `svc_infer`: 30.5 s, 12.3 s and 2 s of features with unvoiced runs
    (7 chunks of 1000 frames); checks finite, non-silent output of
@@ -33,7 +44,8 @@ Phases (any failure exits non-zero without the final line):
 7. training steps: `init_train_states` + `make_train_step` at full
    configs/base.yaml width (batch 16, accum_step 2) on synthetic 300-frame
    utterances; one warm-up step, then 4 timed steps; checks finite losses
-   and grad norms, 91 forward and 91 backward snake launches per step,
+   and grad norms, 91 forward and 91 backward snake launches per step (and
+   in the profiled step 91 kernels of each: one kernel per backward call),
    finite non-zero gradients for every snake alpha and beta, D moving on
    every step and G on every accum_step-th step only; prints ms per step,
    utterances per second, peak device memory and a torch.profiler table of
@@ -71,10 +83,12 @@ line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -142,6 +156,14 @@ REQUEST_FRAMES = (3050, 1230, 200)
 ODD_SHAPES = ((1, 8, 130), (1, 80, 20401), (2, 16, 1024))
 # the JAX package's backward test shapes (tests/test_snake_fused.py:171-191)
 BWD_ODD_SHAPES = ((1, 10, 700), (2, 16, 1024), (1, 3, 130), (2, 20, 4000))
+# the work plan's corners: T = 1, T < 12, T = 32 * RUN +- 1 (a warp's lanes),
+# T = SEG_LEN - 1 (rows whose aligned start needs a second segment), odd T
+# with B * C no multiple of a block's WARPS
+PLAN_ODD_SHAPES = ((1, 1, 1), (2, 3, 1), (1, 5, 5), (3, 3, 11),
+                   (1, 3, 32 * snake_cuda.RUN - 1), (1, 3, 32 * snake_cuda.RUN + 1),
+                   (2, 3, snake_cuda.SEG_LEN - 1), (3, 5, 131), (1, 7, 997))
+# the large-argument inputs at a small, a short-row and a long shape
+LARGE_ARG_SHAPES = ((2, 16, 1024), (16, 160, 125), (1, 20, 163200))
 TRAIN_FRAMES = 300  # 3 s utterances, as bench_train.py:22
 TIMED_STEPS = 4
 CHECK_BATCH, CHECK_FRAMES, CHECK_SLICE_IDS = 2, 100, (0, 61)
@@ -182,6 +204,10 @@ REPLACES_STRIPS = "whisper_vits_svc_tpu/ops/pallas_snake.py:539"
 SOURCE_STRIPS = "whisper_vits_svc_tpu_torch/csrc/snake_alias_strips.cu"
 REPLACES_MMA = "whisper_vits_svc_tpu/ops/pallas_snake.py:280"
 SOURCE_MMA = "whisper_vits_svc_tpu_torch/csrc/snake_alias_mma.cu"
+# an earlier version's forward and backward snake kernels, for the
+# comparison: a copy of their three files kept out of git (build/ is ignored)
+PREV_DIR = Path(__file__).resolve().parent / "build" / "prev_kernels"
+PREV_SOURCES = (PREV_DIR / "snake_alias.cu", PREV_DIR / "snake_alias_bwd.cu")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -237,21 +263,92 @@ def read_counts() -> dict:
                 amp=amp_cuda.launches)
 
 
-def snake_inputs(shape, dtype, seed: int):
+def snake_params(c: int, g, large: bool = False):
+    """alpha, beta [C]: small, or (large) e^alpha in [1.6, 4.5] and beta in
+    [-3, 0]."""
+    if large:
+        return (1.0 + torch.rand(c, device="cuda", generator=g) - 0.5,
+                -3.0 * torch.rand(c, device="cuda", generator=g))
+    return (torch.randn(c, device="cuda", generator=g) * 0.3,
+            torch.randn(c, device="cuda", generator=g) * 0.3)
+
+
+def snake_inputs(shape, dtype, seed: int, large: bool = False, n_buf: int | None = None):
     """(rotating inputs over >100 MB, alpha, beta) for one snake shape."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, c, t = shape
-    alpha = torch.randn(c, device="cuda", generator=g) * 0.3
-    beta = torch.randn(c, device="cuda", generator=g) * 0.3
-    n_buf = max(1, -(-100_000_000 // (b * c * t * 4)))
-    xs = [(torch.randn(shape, device="cuda", generator=g) * 1.5).to(dtype) for _ in range(n_buf)]
+    alpha, beta = snake_params(c, g, large)
+    n_buf = n_buf or max(1, -(-100_000_000 // (b * c * t * 4)))
+    scale = 100.0 if large else 1.5
+    xs = [(torch.randn(shape, device="cuda", generator=g) * scale).to(dtype)
+          for _ in range(n_buf)]
     return xs, alpha, beta
 
 
-def check_kernel(shape, dtype, seed: int, variant: str = "direct") -> dict:
+def misalign(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose start lies 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    skip = 4 // x.element_size()
+    out = flat[skip: skip + x.numel()].view(x.shape)
+    out.copy_(x)
+    check(out.data_ptr() % 16 == 4, "misalign: the copy is 16-byte aligned")
+    return out
+
+
+def load_prev() -> dict | None:
+    """The earlier forward and backward snake kernels from build/prev_kernels/
+    (built with the others in the build phase; the tile-based C ABI, one
+    block per 1024-sample tile and a second sum launch) behind wrappers, or
+    None where the directory is absent (a checkout from git)."""
+    if not all(p.exists() for p in (*PREV_SOURCES, PREV_DIR / "snake_alias.cuh")):
+        return None
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    taps = ctypes.POINTER(ctypes.c_float)
+    fwd_lib = snake_cuda.load_library(PREV_SOURCES[0], "snake_alias_forward",
+                                      [ptr] * 4 + [taps] + [num] * 4 + [ptr],
+                                      "snake_alias_error_string")
+    bwd_lib = snake_cuda.load_library(PREV_SOURCES[1], "snake_alias_backward",
+                                      [ptr] * 9 + [taps] + [num] * 4 + [ptr],
+                                      "snake_alias_backward_error_string")
+    bwd_lib.snake_alias_backward_tile.argtypes, bwd_lib.snake_alias_backward_tile.restype = [], num
+    tile = bwd_lib.snake_alias_backward_tile()
+
+    def fwd(x, alpha, beta):
+        return snake_cuda._launch_forward("snake_alias", lambda: fwd_lib, x, alpha, beta)
+
+    def bwd(x, alpha, beta, dy):
+        b, c, t = x.shape
+        dx = torch.empty_like(x)
+        parts = torch.empty((2, c, b * -(-t // tile)), dtype=torch.float32, device=x.device)
+        grads = torch.empty((2, c), dtype=torch.float32, device=x.device)
+        err = bwd_lib.snake_alias_backward(
+            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
+            parts[1].data_ptr(), alpha.data_ptr(), beta.data_ptr(), grads[0].data_ptr(),
+            grads[1].data_ptr(), snake_cuda._taps(), int(x.dtype == torch.bfloat16), b, c, t,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"earlier backward kernel launch failed: {err}")
+        return dx, grads[0], grads[1]
+
+    return dict(fwd=fwd, bwd=bwd)
+
+
+def timed_pair(row: dict, new, old, iters: int) -> None:
+    """row["kernel_ms"] and, with `old`, row["prev_ms"]: timed in turns (new,
+    old, old, new), each the mean of its two."""
+    if old is None:
+        row["kernel_ms"] = cuda_ms(new, iters)
+        return
+    k1, o1, o2, k2 = (cuda_ms(fn, iters) for fn in (new, old, old, new))
+    row["kernel_ms"], row["prev_ms"] = (k1 + k2) / 2, (o1 + o2) / 2
+
+
+def check_kernel(shape, dtype, seed: int, variant: str = "direct", prev: dict | None = None
+                 ) -> dict:
     """A forward snake kernel vs plain on the same inputs; "strips" and "mma"
     also vs the direct kernel (strips bitwise), with its time on the same
-    inputs. Returns errors and times."""
+    inputs; the direct kernel with the earlier kernel's time (`prev`) on the
+    same inputs.
+    Returns errors and times."""
     fn = SNAKE_KERNELS[variant]
     xs, alpha, beta = snake_inputs(shape, dtype, seed)
     b, c, t = shape
@@ -280,7 +377,17 @@ def check_kernel(shape, dtype, seed: int, variant: str = "direct") -> dict:
             odd = snake_cuda.snake_alias_strips_cuda(xs[0], alpha, beta, fold=min(7, t))
             check(torch.equal(odd, direct),
                   f"snake strips kernel with fold 7 is not bitwise equal to direct at {shape}")
-    row["kernel_ms"] = cuda_ms(lambda i=0: fn(xs[i % n_buf], alpha, beta), iters)
+    old = None
+    if prev is not None:
+        before = prev["fwd"](xs[0], alpha, beta)
+        row["prev_err"] = (before.float() - got.float()).abs().max().item()
+        check(torch.allclose(before.float(), got.float(), **tol),
+              f"earlier snake kernel against the new one at {shape} {dtype}: "
+              f"{row['prev_err']}")
+
+        def old(i=0):
+            return prev["fwd"](xs[i % n_buf], alpha, beta)
+    timed_pair(row, lambda i=0: fn(xs[i % n_buf], alpha, beta), old, iters)
     row["plain_ms"] = cuda_ms(lambda i=0: snake_alias_fused_cm(xs[i % n_buf], alpha, beta), iters)
     n = b * c * t
     row["bound_ms"], row["bound_by"] = bound_ms(2 * n * xs[0].element_size(),
@@ -334,10 +441,11 @@ def check_amp(case, dtype, seed: int, timed: bool) -> dict:
     return row
 
 
-def check_bwd_kernel(shape, dtype, seed: int) -> dict:
+def check_bwd_kernel(shape, dtype, seed: int, prev: dict | None = None) -> dict:
     """Backward kernel vs plain backward (autograd through the plain forward,
     in float32 on the same rounded inputs); bitwise-equal dalpha/dbeta across
-    two calls; returns errors and times."""
+    two calls; returns errors and times (the earlier kernel's beside them with
+    `prev`)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, c, t = shape
     alpha = torch.randn(c, device="cuda", generator=g) * 0.3
@@ -360,16 +468,62 @@ def check_bwd_kernel(shape, dtype, seed: int) -> dict:
     check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
           f"dalpha/dbeta differ between two calls at {shape} {dtype}")
     iters = 50 if b * c * t < 2_000_000 else 20
-    k_ms = cuda_ms(lambda i=0: snake_cuda.snake_alias_bwd_cuda(
-        xs[i % n_buf], alpha, beta, dys[i % n_buf]), iters)
-    p_ms = cuda_ms(lambda i=0: snake_cuda.snake_alias_bwd_plain(
+    row = dict(shape=list(shape), dtype=str(dtype).removeprefix("torch."),
+               max_abs_err=max(errs.values()), errs=errs)
+    old = None
+    if prev is not None:
+        before = prev["bwd"](xs[0], alpha, beta, dys[0])
+        row["prev_err"] = max((p.float() - a.float()).abs().max().item()
+                              for p, a in zip(before, got))
+        check(all(torch.allclose(p.float(), a.float(), **tol) for p, a in zip(before, got)),
+              f"earlier backward kernel against the new one at {shape} {dtype}: "
+              f"{row['prev_err']}")
+
+        def old(i=0):
+            return prev["bwd"](xs[i % n_buf], alpha, beta, dys[i % n_buf])
+    timed_pair(row, lambda i=0: snake_cuda.snake_alias_bwd_cuda(
+        xs[i % n_buf], alpha, beta, dys[i % n_buf]), old, iters)
+    row["plain_ms"] = cuda_ms(lambda i=0: snake_cuda.snake_alias_bwd_plain(
         xs[i % n_buf], alpha, beta, dys[i % n_buf]), iters)
     n = b * c * t
     # x and dy read once, dx written once; alpha, beta read, dalpha, dbeta written
-    bnd, by = bound_ms(3 * n * xs[0].element_size() + 4 * c * 4, n * SNAKE_BWD_OPS_PER_ELEM)
-    return dict(shape=list(shape), dtype=str(dtype).removeprefix("torch."),
-                max_abs_err=max(errs.values()), errs=errs, kernel_ms=k_ms, plain_ms=p_ms,
-                bound_ms=bnd, bound_by=by)
+    row["bound_ms"], row["bound_by"] = bound_ms(3 * n * xs[0].element_size() + 4 * c * 4,
+                                                n * SNAKE_BWD_OPS_PER_ELEM)
+    return row
+
+
+def check_corner(shape, dtype, seed: int, large: bool = False, misaligned: bool = False) -> dict:
+    """The forward and the backward kernel against their plain versions at one
+    corner of the work plan (untimed): the same tolerances as the main
+    shapes; dalpha/dbeta bitwise equal across two calls."""
+    xs, alpha, beta = snake_inputs(shape, dtype, seed, large=large, n_buf=1)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    x, dy = xs[0], torch.randn(shape, device="cuda", generator=g).to(dtype)
+    if misaligned:
+        x, dy = misalign(x), misalign(dy)
+    f32 = dtype == torch.float32
+    tol, btol = (F32_TOL, BWD_F32_TOL) if f32 else (BF16_TOL, BF16_TOL)
+    got = snake_cuda.snake_alias_cuda(x, alpha, beta)
+    want = snake_alias_fused_cm(x.float(), alpha, beta).to(dtype)
+    got_b = snake_cuda.snake_alias_bwd_cuda(x, alpha, beta, dy)
+    again = snake_cuda.snake_alias_bwd_cuda(x, alpha, beta, dy)
+    want_b = snake_cuda.snake_alias_bwd_plain(x.float(), alpha, beta, dy.float())
+    want_b = (want_b[0].to(dtype), want_b[1], want_b[2])
+    torch.cuda.synchronize()
+    label = f"{shape} {dtype}" + (" large arguments" if large else "") + (
+        " misaligned" if misaligned else "")
+    errs = {"y": (got.float() - want.float()).abs().max().item()}
+    check(torch.allclose(got.float(), want.float(), **tol),
+          f"snake kernel disagrees at {label}: max abs err {errs['y']}")
+    for name, a, w in zip(("dx", "dalpha", "dbeta"), got_b, want_b):
+        errs[name] = (a.float() - w.float()).abs().max().item()
+        check(torch.allclose(a.float(), w.float(), **btol),
+              f"snake backward kernel disagrees on {name} at {label}: max abs err {errs[name]}")
+    check(torch.equal(got_b[1], again[1]) and torch.equal(got_b[2], again[2]),
+          f"dalpha/dbeta differ between two calls at {label}")
+    return dict(shape=list(shape), dtype=str(dtype).removeprefix("torch."), large=large,
+                misaligned=misaligned, errs=errs,
+                max_abs_x_alpha=(x.float().abs().amax(dim=(0, 2)) * alpha.exp()).max().item())
 
 
 def per_call_sum(rows, stages, extra: tuple[str, ...] = ()) -> tuple[dict, str]:
@@ -556,8 +710,8 @@ KERNEL_KINDS = (
 
 def profile(fn) -> dict:
     """torch.profiler over fn(): the table by device time, wall ms, device
-    busy ms (kernels, copies; no user-annotation ranges) and device ms by
-    kernel kind."""
+    busy ms (kernels, copies; no user-annotation ranges), device ms and
+    kernel count by kernel kind."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -565,6 +719,7 @@ def profile(fn) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kinds = {kind: 0.0 for kind, _ in KERNEL_KINDS} | {"other": 0.0}
+    counts = dict.fromkeys(kinds, 0)
     for e in prof.events():
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)):
@@ -572,10 +727,11 @@ def profile(fn) -> dict:
         kind = next((k for k, keys in KERNEL_KINDS if any(key in e.name for key in keys)),
                     "other")
         kinds[kind] += e.time_range.elapsed_us() / 1e3
+        counts[kind] += 1
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15,
                                       max_name_column_width=48)
     return dict(table=table, wall_ms=wall_us / 1e3, busy_ms=sum(kinds.values()),
-                kinds=kinds)
+                kinds=kinds, counts=counts)
 
 
 def snake_param_indices(model) -> list[int]:
@@ -778,26 +934,31 @@ def main() -> int:
 
     resolve_device("cuda")  # TF32 off: the plain versions' convolutions run in float32
     t0 = time.perf_counter()
-    libs = snake_cuda.build()
+    sources = snake_cuda.all_sources()
+    compare = all(p.exists() for p in (*PREV_SOURCES, PREV_DIR / "snake_alias.cuh"))
+    libs = snake_cuda.build(*sources, *(PREV_SOURCES if compare else ()))
     for load in (snake_cuda._library, snake_cuda._library_bwd, snake_cuda._library_strips,
                  snake_cuda._library_mma, amp_cuda._library):
         load()
-    check(len(libs) == 5, f"{len(libs)} kernel libraries built, expected 5")
-    print(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    prev = load_prev()
+    check(len(sources) == 5, f"{len(sources)} kernel sources, expected 5")
+    print(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s"
+          + (f" (with the earlier two from {PREV_DIR.name}/)" if prev else
+             "; no build/prev_kernels/: no comparison with earlier kernels"), flush=True)
 
     hp = config_from_dict(BASE_MODEL_CONFIG)
     stages = stage_shapes(hp, 1, CHUNK_FRAMES)
     rows = []
     for i, (shape, _) in enumerate(stages):
         for dtype in (torch.float32, torch.bfloat16):
-            rows.append(check_kernel(shape, dtype, seed=i))
+            rows.append(check_kernel(shape, dtype, seed=i, prev=prev))
     for i, shape in enumerate(ODD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             rows.append(check_kernel(shape, dtype, seed=100 + i))
     for r in rows:
         print("[kernel] " + json.dumps(r), flush=True)
-    per_chunk, bound_by = per_call_sum(rows, stages)
+    cmp_cols = ("prev_ms",) if prev else ()
+    per_chunk, bound_by = per_call_sum(rows, stages, extra=cmp_cols)
     n_calls = sum(calls for _, calls in stages)
     print(f"[kernel] per 1020-frame chunk, f32, {n_calls} calls: {json.dumps(per_chunk)}",
           flush=True)
@@ -808,10 +969,11 @@ def main() -> int:
     bwd_rows = []
     for i, shape in enumerate([s for s, _ in train_stages] + list(BWD_ODD_SHAPES)):
         for dtype in (torch.float32, torch.bfloat16):
-            bwd_rows.append(check_bwd_kernel(shape, dtype, seed=200 + i))
+            bwd_rows.append(check_bwd_kernel(shape, dtype, seed=200 + i,
+                                             prev=prev if i < len(train_stages) else None))
     for r in bwd_rows:
         print("[kernel-bwd] " + json.dumps(r), flush=True)
-    per_step, bwd_bound_by = per_call_sum(bwd_rows, train_stages)
+    per_step, bwd_bound_by = per_call_sum(bwd_rows, train_stages, extra=cmp_cols)
     n_train_calls = sum(calls for _, calls in train_stages)
     print(f"[kernel-bwd] per training step (batch {hp.train.batch_size}, {seg_frames}-frame "
           f"segments), f32, {n_train_calls} calls: {json.dumps(per_step)}", flush=True)
@@ -819,12 +981,29 @@ def main() -> int:
     fwd_train_rows = []
     for i, (shape, _) in enumerate(train_stages):
         for dtype in (torch.float32, torch.bfloat16):
-            fwd_train_rows.append(check_kernel(shape, dtype, seed=300 + i))
+            fwd_train_rows.append(check_kernel(shape, dtype, seed=300 + i, prev=prev))
     for r in fwd_train_rows:
         print("[kernel-train] " + json.dumps(r), flush=True)
-    fwd_per_step, fwd_step_bound_by = per_call_sum(fwd_train_rows, train_stages)
+    fwd_per_step, fwd_step_bound_by = per_call_sum(fwd_train_rows, train_stages, extra=cmp_cols)
     print(f"[kernel-train] forward per training step, f32, {n_train_calls} calls: "
           f"{json.dumps(fwd_per_step)}; backward {json.dumps(per_step)}", flush=True)
+
+    if prev:
+        print(f"[compare-prev] f32, CUDA events, cold L2, same inputs, in turns: forward "
+              f"{per_chunk['ms']:.4f} ms per chunk (earlier {per_chunk['prev_ms']:.4f}), "
+              f"{fwd_per_step['ms']:.4f} ms per step (earlier {fwd_per_step['prev_ms']:.4f}); "
+              f"backward {per_step['ms']:.4f} ms per step (earlier {per_step['prev_ms']:.4f})",
+              flush=True)
+
+    # the corners of the work plan, and large arguments, forward and backward
+    corners = [(shape, False, False) for shape in PLAN_ODD_SHAPES + BWD_ODD_SHAPES]
+    corners += [((2, 16, 1024), False, True), ((16, 160, 125), False, True)]
+    corners += [(shape, True, False) for shape in LARGE_ARG_SHAPES]
+    for i, (shape, large, misaligned) in enumerate(corners):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = check_corner(shape, dtype, seed=700 + i, large=large, misaligned=misaligned)
+            print("[kernel-corner] " + json.dumps(r), flush=True)
+    print(f"[kernel-corner] {2 * len(corners)} cases within the tolerances", flush=True)
 
     alt = alt_kernel_phase(hp, stages)
 
@@ -907,10 +1086,14 @@ def main() -> int:
           f"in {n_steps} steps", flush=True)
     prof = tr["profile"]
     print(prof["table"], flush=True)
+    check(prof["counts"]["snake_fwd"] == 91 and prof["counts"]["snake_bwd"] == 91,
+          f"profiled step: {prof['counts']['snake_fwd']} forward and "
+          f"{prof['counts']['snake_bwd']} backward snake kernels, expected 91 each")
     print(f"[train-profile] one step: wall {prof['wall_ms']:.2f} ms, device busy "
           f"{prof['busy_ms']:.2f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), "
           f"profiler on; device ms by kind "
-          + json.dumps({k: round(v, 3) for k, v in prof["kinds"].items()}), flush=True)
+          + json.dumps({k: round(v, 3) for k, v in prof["kinds"].items()})
+          + "; kernels by kind " + json.dumps(prof["counts"]), flush=True)
 
     # the training step's losses and gradients on the card and on the CPU
     cmp = train_card_vs_cpu(hp, tr["g_state"].model, tr["d_state"].model)
@@ -952,6 +1135,7 @@ def main() -> int:
                            if r["dtype"] == "float32"),
         "ms": per_chunk["ms"], "plain_ms": per_chunk["plain_ms"],
         "bound_ms": per_chunk["bound_ms"], "bound_by": bound_by, "library_ms": None,
+        "prev_ms": per_chunk.get("prev_ms"),
         "per": f"one {CHUNK_FRAMES}-frame chunk at base width, float32, {n_calls} calls",
         "launches_by_path": {"svc_infer": launches, "train_step": train_fwd},
         "train_step": fwd_per_step | {
@@ -964,6 +1148,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["dtype"] == "float32"),
         "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
         "bound_ms": per_step["bound_ms"], "bound_by": bwd_bound_by, "library_ms": None,
+        "prev_ms": per_step.get("prev_ms"),
         "per": f"one training step at base width (batch {hp.train.batch_size}, "
                f"{seg_frames}-frame segments), float32, {n_train_calls} calls",
         "launches_by_path": {"svc_infer": infer_bwd, "train_step": train_bwd},

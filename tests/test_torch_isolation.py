@@ -64,7 +64,8 @@ def test_kernel_modules_and_sources_stand_alone():
                 assert not bad.search(text), os.path.join(root, name)
                 assert "torch/extension.h" not in text, name
                 checked += 1
-    for script in ("chip_smoke.py", "kink_flips.py", "strip_sweep.py"):
+    for script in ("chip_smoke.py", "kink_flips.py", "strip_sweep.py", "sass_counts.py",
+                   "snake_probe.py"):
         assert not bad.search(open(os.path.join(REPO, script), encoding="utf-8").read()), script
     assert checked >= 30
 

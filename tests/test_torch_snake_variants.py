@@ -74,10 +74,11 @@ def test_strip_fold_segments_cover_the_row_once(c, t, b, slots):
 
 def test_strip_fold_and_gate_at_base_width():
     """One 1020-frame chunk at base width: strips takes the C = 20 and
-    C = 10 stages (narrow, long), in 2040-sample segments."""
+    C = 10 stages (narrow, long), in segments of about 3100 samples that
+    fill the card's 1056 block slots once (52 x 20 and 105 x 10 blocks)."""
     stages = [(160, 5100), (80, 20400), (40, 81600), (20, 163200), (10, 326400)]
     assert [snake_cuda.use_strips(c, t) for c, t in stages] == [False, False, False, True, True]
-    assert [snake_cuda.strip_fold(c, t) for c, t in stages[3:]] == [80, 160]
+    assert [snake_cuda.strip_fold(c, t) for c, t in stages[3:]] == [52, 105]
     assert snake_cuda.use_strips(10, 8000, 16) and not snake_cuda.use_strips(10, 8000, 2)
 
 

@@ -22,15 +22,32 @@
 // us for the stages [160, 5100], [80, 20400], [40, 81600], [20, 163200],
 // [10, 326400].
 //
-// Design: one block per (time tile, c, b); the tile body is
-// snake_alias.cuh::snake_tile, shared with the strips kernel
-// (snake_alias_strips.cu). The block stages its x tile plus a 6-sample halo on each side in shared memory (clamped reads give the edge
-// replication), computes both snake'd phases for the tile plus 3 positions
-// each side into shared memory, then each thread produces outputs from the
-// phases. Every element of x is read from HBM once per tile (plus 12 halo
-// samples), every output written once. Math is f32 for f32 and bf16 inputs.
-// Built without --use_fast_math: sinf's fast form loses accuracy as |a*u|
-// grows, and the tolerance against the plain version is f32.
+// Design: the previous body (a 1024-output tile a block through shared
+// memory) reached 30% of the bound: bf16 took the time of f32, so instructions, not
+// bytes, held it back (about 20 shared loads an output). The body is now
+// snake_alias.cuh::snake_segment, shared with the strips kernel: one warp
+// makes 248 consecutive outputs of a row, each lane a run of 8 from
+// registers. A lane loads its 8 samples of x in 16-byte accesses and takes
+// the 6 before them from the lane below by shuffles, so each sample is
+// loaded once; it slides the two 6-tap up FIRs over them (unfused, so that
+// u and the sine's argument are the plain version's to the bit) and takes
+// each phase position's sin once; the 6 E and 5 O phases right of its run
+// come from the lane above by 11 shuffles. No shared memory. The edge
+// clamps E[p<0] = E[0] and O[p>T-1] = O[T-1] are shuffled from the lane
+// that computed E[0] or O[T-1]. The launch is one warp per (row, segment)
+// pair, 8 warps a block, so a block holds several short rows (T = 125 at
+// the training step's first stage). Segments start 16-byte aligned in
+// memory (the first one up to 7 samples before the row), so runs inside the
+// row load and store 16 bytes at a time even where the row itself is not
+// aligned; runs that cross an edge or an unaligned address go element by
+// element. ops/snake_cuda.py::snake_plan computes the same geometry.
+// Measured on an H100 (PERF.md): 18.1 us a call at the long stages (43% of
+// the bound; the previous body 25.9), 1.36 ms a chunk (39%; previously 1.89).
+// What holds it now is instruction issue and latency: sinf is about a
+// quarter of the time (snake_probe.py), the unfused up FIR a sixth of the
+// instructions. Math is f32 for f32 and bf16 inputs. Built without
+// --use_fast_math: sinf's fast form loses accuracy as |a*u| grows, and the
+// tolerance against the plain version is f32.
 
 #include "snake_alias.cuh"
 
@@ -42,18 +59,18 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 snake_alias_kernel(const T* __restrict__ x, T* __restrict__ out,
                    const float* __restrict__ alpha, const float* __restrict__ beta,
-                   const Taps taps, int channels, int len) {
-  __shared__ float xs[kXLen];
-  __shared__ float ph_e[kPLen];
-  __shared__ float ph_o[kPLen];
-  __shared__ float edge[2];
-
-  const int c = blockIdx.y;
-  const long long row_off = ((long long)blockIdx.z * channels + c) * len;
+                   const Taps taps, int channels, int len, int n_seg, long long warps) {
+  const long long g = (long long)blockIdx.x * kWarps + threadIdx.x / kLanes;
+  if (g >= warps) return;
+  const long long row = g / n_seg;
+  const int c = (int)(row % channels);
+  const long long row_off = row * len;
+  const int s = (int)(g - row * n_seg) * kSegLen - (int)(row_off % kVec<T>);
+  const int lo = max(s, 0), hi = min(s + kSegLen, len);
+  if (lo >= hi) return;
   const float a = expf(alpha[c]);
   const float ib = 1.0f / (expf(beta[c]) + 1e-9f);
-  snake_tile(x + row_off, out + row_off, blockIdx.x * kTile, len, len, a, ib, taps, xs, ph_e,
-             ph_o, edge);
+  snake_segment(x + row_off, out + row_off, s, lo, hi, len, a, ib, taps);
 }
 
 }  // namespace
@@ -62,22 +79,31 @@ extern "C" {
 
 // x, out: device [B, C, T] contiguous, float32 (is_bf16 = 0) or bfloat16
 // (is_bf16 = 1); alpha, beta: device float32 [C]; taps: host float32[24] as
-// ae, ao, de, do. Launches on `stream` and returns cudaGetLastError().
+// ae, ao, de, do; n_seg segments of seg_len outputs per row, seg_len the
+// kernel's (248), n_seg * seg_len >= T + 16 / element size - 1 (room for the
+// first segment's aligned start; ops/snake_cuda.py::snake_plan).
+// Launches on `stream` and returns cudaGetLastError().
 int snake_alias_forward(const void* x, void* out, const void* alpha, const void* beta,
                         const float* taps, int is_bf16, int batch, int channels, int len,
-                        void* stream) {
+                        int n_seg, int seg_len, void* stream) {
+  const int lead = is_bf16 ? kVec<__nv_bfloat16> - 1 : kVec<float> - 1;
+  if (seg_len != kSegLen || n_seg < 1 || (long long)n_seg * seg_len < (long long)len + lead) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Taps t = load_taps(taps);
-  const dim3 grid((len + kTile - 1) / kTile, channels, batch);
+  const long long warps = (long long)batch * channels * n_seg;
+  const unsigned blocks = (unsigned)((warps + kWarps - 1) / kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(alpha);
   const float* b = static_cast<const float*>(beta);
   if (is_bf16) {
-    snake_alias_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+    snake_alias_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), a, b, t,
-        channels, len);
+        channels, len, n_seg, warps);
   } else {
-    snake_alias_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), a, b, t, channels, len);
+    snake_alias_kernel<float><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), a, b, t, channels, len, n_seg,
+        warps);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,6 +41,7 @@ namespace {
 
 using namespace snake_alias;
 
+constexpr int kTile = 1024;           // outputs a block
 constexpr int kRows = 16;             // rows of one mma: segments of the tile
 constexpr int kSeg = 64;              // outputs per row
 constexpr int kRowX = 88;             // staged x per row: positions seg - 11 .. seg + 76
@@ -48,6 +49,24 @@ constexpr int kStride = 100;          // row stride in shared memory, = 4 mod 32
 constexpr int kUpWindows = 5;         // 80 phase positions per row: seg - 8 .. seg + 71
 constexpr int kUpElems = 24 * 32;     // B_up
 constexpr int kDnElems = 48 * 16;     // B_dn
+
+// s(se[0]): the downsample input before position 0
+template <typename T>
+__device__ __forceinline__ float head_clamp(const T* xr, int len, float a, float ib,
+                                            const Taps& taps) {
+  float se = taps.ae[0] * x_at(xr, -3, len);
+  for (int m = 1; m < kTaps; ++m) se = se + taps.ae[m] * x_at(xr, m - 3, len);
+  return snake(se, a, ib);
+}
+
+// s(so[T-1]): the downsample input past position T-1
+template <typename T>
+__device__ __forceinline__ float tail_clamp(const T* xr, int len, float a, float ib,
+                                            const Taps& taps) {
+  float so = taps.ao[0] * x_at(xr, len - 3, len);
+  for (int m = 1; m < kTaps; ++m) so = so + taps.ao[m] * x_at(xr, len - 3 + m, len);
+  return snake(so, a, ib);
+}
 
 __device__ __forceinline__ uint32_t tf32(float v) {
   uint32_t r;

@@ -6,18 +6,20 @@
 // time segments and the launch's rows being (segment, channel) pairs, each
 // with its global time offset. On the TPU the fold filled 8-row sublane
 // groups; here it is a launch shape: the grid is (segment, channel, batch)
-// and each block walks its segment tile after tile, so the caller decides
-// how many blocks a narrow, long stage becomes (the direct kernel always
-// launches one block per 1024-sample tile). ops/snake_cuda.py::strip_fold
-// chooses the fold: enough segments to fill the card's resident blocks once
-// on short rows, and never more than two tiles a block, since on an H100
-// the time is least at one tile a block and flat up to two (strip_sweep.py).
+// and each block's 8 warps walk its segment in the direct kernel's 248-output
+// warp segments, so the caller decides how many blocks a narrow, long stage
+// becomes (the direct kernel always launches one warp per warp segment).
+// ops/snake_cuda.py::strip_fold chooses the fold: enough segments to fill
+// the card's resident blocks once on short rows, and never more than two
+// rounds of a block's warps a segment.
 //
 // The kernel reads x in place: segment s of a row is [s * seg_len,
 // min((s + 1) * seg_len, T)), index arithmetic only, with no gather pass in
 // and no transpose pass out. Every position, clamp and edge is taken against
-// global coordinates by snake_alias.cuh::snake_tile, the direct kernel's own
-// body, so the output is bitwise equal to the direct kernel's.
+// global coordinates by snake_alias.cuh::snake_segment, the direct kernel's
+// own body, so the output is bitwise equal to the direct kernel's: a warp
+// segment that a strip boundary cuts writes only its part, and the phases
+// and clamps of every output are computed by the same instructions.
 //
 // Bound: HBM bytes, as the direct kernel (x read once, out written once).
 
@@ -32,20 +34,17 @@ __global__ void __launch_bounds__(kThreads)
 snake_alias_strips_kernel(const T* __restrict__ x, T* __restrict__ out,
                           const float* __restrict__ alpha, const float* __restrict__ beta,
                           const Taps taps, int channels, int len, int seg_len) {
-  __shared__ float xs[kXLen];
-  __shared__ float ph_e[kPLen];
-  __shared__ float ph_o[kPLen];
-  __shared__ float edge[2];
-
   const int c = blockIdx.y;
   const long long row_off = ((long long)blockIdx.z * channels + c) * len;
   const float a = expf(alpha[c]);
   const float ib = 1.0f / (expf(beta[c]) + 1e-9f);
-  const long long seg_lo = (long long)blockIdx.x * seg_len;
-  const int seg_hi = (int)min(seg_lo + seg_len, (long long)len);
-  for (int t0 = (int)seg_lo; t0 < seg_hi; t0 += kTile) {
-    snake_tile(x + row_off, out + row_off, t0, seg_hi, len, a, ib, taps, xs, ph_e, ph_o, edge);
-    __syncthreads();
+  const int seg_lo = (int)min((long long)blockIdx.x * seg_len, (long long)len);
+  const int seg_hi = (int)min((long long)seg_lo + seg_len, (long long)len);
+  // warp segments from the 16-byte-aligned position at or before seg_lo
+  const int base = seg_lo - (int)((row_off + seg_lo) % kVec<T>);
+  for (int s = base + (threadIdx.x / kLanes) * kSegLen; s < seg_hi; s += kWarps * kSegLen) {
+    const int lo = max(s, seg_lo), hi = min(s + kSegLen, seg_hi);
+    snake_segment(x + row_off, out + row_off, s, lo, hi, len, a, ib, taps);
   }
 }
 

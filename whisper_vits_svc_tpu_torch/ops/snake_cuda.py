@@ -11,15 +11,26 @@ beside it) and bound with ctypes; `build` starts one nvcc per source, all at
 once. The snake kernels are bound by HBM bytes (see the notes in the
 sources).
 
+The direct forward and the backward kernels share one work plan,
+`snake_plan`: a warp makes SEG_LEN (248) consecutive outputs of one (b, c)
+row, a lane a run of RUN (8) of them from registers; segments start 16-byte
+aligned in memory, so a row has `n_seg` of them, the first starting up to
+7 samples before the row; WARPS (8) warps a block, so a block may hold
+several short rows. The backward is one launch: its per-channel dalpha and
+dbeta are summed by the last warp of each channel, found with an integer
+ticket per channel that the kernel sets back to 0 (one zeroed buffer per
+device and stream, made at first use); its edge clamp sums take their
+coefficients from `clamp_taps`.
+
 `snake_alias` takes the plain PyTorch version (nn/snake.py) only for a CPU
 tensor; for a CUDA tensor it launches the kernels or raises. When a gradient
 is wanted it goes through `SnakeAliasFunction`, which saves only x, alpha
 and beta (as the JAX custom VJP does) and runs the backward kernel; without
 one (e.g. under torch.inference_mode) it launches the forward alone.
-`variant` chooses the forward kernel: "direct" (one block per 1024-sample
-tile), "strips" (narrow, long shapes cut into segments that fill the card
-once; bitwise equal to "direct") or "mma" (the phase FIRs as 3xTF32 products
-on the tensor cores). The two alternatives are forward only, as in the JAX
+`variant` chooses the forward kernel: "direct" (the plan above), "strips"
+(narrow, long shapes cut into segments that fill the card once; bitwise
+equal to "direct") or "mma" (the phase FIRs as 3xTF32 products on the
+tensor cores). The two alternatives are forward only, as in the JAX
 package. `launches`, `launches_bwd`, `launches_strips` and `launches_mma`
 count kernel launches.
 """
@@ -31,6 +42,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from functools import lru_cache
 from pathlib import Path
 
@@ -55,8 +67,12 @@ STRIPS_MAX_C = 32
 STRIPS_MIN_BT = 100_000
 # blocks an H100 holds at once: 132 SMs x 8 resident 256-thread blocks
 H100_BLOCK_SLOTS = 132 * 8
-STRIPS_MIN_SEG = 256
-STRIPS_MAX_SEG = 2048  # two of the kernel's 1024-sample tiles
+# the forward and backward kernels' work plan (csrc/snake_alias.cuh)
+RUN = 8                  # consecutive outputs a lane
+SEG_LEN = 31 * RUN       # outputs a warp segment: lane 31 computes lane 30's phases
+WARPS = 8                # warps a block
+STRIPS_MIN_SEG = SEG_LEN
+STRIPS_MAX_SEG = 2 * WARPS * SEG_LEN  # two rounds of a block's warp segments
 
 launches = 0
 launches_bwd = 0
@@ -81,7 +97,8 @@ def all_sources() -> tuple[Path, ...]:
 
 
 def _lib_path(source: Path) -> Path:
-    text = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    headers = sorted(source.parent.glob("*.cuh"))
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
     digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
@@ -124,17 +141,14 @@ _PTR, _INT, _TAPS = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float
 @lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     return load_library(SOURCE, "snake_alias_forward",
-                        [_PTR] * 4 + [_TAPS] + [_INT] * 4 + [_PTR], "snake_alias_error_string")
+                        [_PTR] * 4 + [_TAPS] + [_INT] * 6 + [_PTR], "snake_alias_error_string")
 
 
 @lru_cache(maxsize=None)
 def _library_bwd() -> ctypes.CDLL:
-    lib = load_library(SOURCE_BWD, "snake_alias_backward",
-                       [_PTR] * 9 + [_TAPS] + [_INT] * 4 + [_PTR],
-                       "snake_alias_backward_error_string")
-    lib.snake_alias_backward_tile.argtypes = []
-    lib.snake_alias_backward_tile.restype = ctypes.c_int
-    return lib
+    return load_library(SOURCE_BWD, "snake_alias_backward",
+                        [_PTR] * 10 + [_TAPS] + [_INT] * 6 + [_PTR],
+                        "snake_alias_backward_error_string")
 
 
 @lru_cache(maxsize=None)
@@ -157,6 +171,80 @@ def _taps():
     assert (oe, oo, doe, doo) == (-3, -2, -2, -3), "kernel assumes the k=12 geometry"
     assert len(ae) == len(ao) == len(de) == len(do_) == 6
     return (ctypes.c_float * 24)(*np.concatenate([ae, ao, de, do_]).tolist())
+
+
+@lru_cache(maxsize=None)
+def clamp_taps() -> dict[str, np.ndarray]:
+    """The backward's edge terms as weights of values next to the edges, all
+    float32 [3]. hd[k] weighs dy[k] in the clamp sum onto s_e[0] (the down-FIR
+    adjoints dE[q] + dO[q] at q = -3..-1), td[k] weighs dy[T-3+k] in the sum
+    onto s_o[T-1] (q = T..T+2); hxe/hxo[k] weigh du_e/du_o[k] in the
+    edge-pad adjoint onto dx[0] (the up-FIR adjoint dxp[q] at q = -3..-1),
+    txe/txo[k] weigh du_e/du_o[T-3+k] in the one onto dx[T-1]. dy and du are
+    zero outside [0, T), so nothing else reaches these sums."""
+    ae, ao, _, _, de, do_, _, _ = _polyphase_taps(12, 12)
+    w = {name: np.zeros(3, np.float64) for name in ("hd", "td", "hxe", "hxo", "txe", "txo")}
+
+    def add(name, k, v):
+        if 0 <= k <= 2:
+            w[name][k] += v
+
+    for m in range(6):
+        for q in (-3, -2, -1):
+            # dE[q] = sum de[m] dy[q+2-m], dO[q] = sum do[m] dy[q+3-m];
+            # dxp[q] = sum ae[m] du_e[q+3-m] + ao[m] du_o[q+2-m]
+            add("hd", q + 2 - m, de[m])
+            add("hd", q + 3 - m, do_[m])
+            add("hxe", q + 3 - m, ae[m])
+            add("hxo", q + 2 - m, ao[m])
+        for d in (0, 1, 2):  # q = T + d; position T-3+k has k = position - T + 3
+            add("td", d + 5 - m, de[m])
+            add("td", d + 6 - m, do_[m])
+            add("txe", d + 6 - m, ae[m])
+            add("txo", d + 5 - m, ao[m])
+    return {k: v.astype(np.float32) for k, v in w.items()}
+
+
+@lru_cache(maxsize=None)
+def _taps_bwd():
+    """The backward kernel's 42 floats: ae, ao, de, do, hd, td, hxe, hxo, txe, txo."""
+    edge = clamp_taps()
+    values = np.concatenate([np.asarray(_taps(), np.float32)]
+                            + [edge[k] for k in ("hd", "td", "hxe", "hxo", "txe", "txo")])
+    return (ctypes.c_float * 42)(*values.tolist())
+
+
+@dataclass(frozen=True)
+class SnakePlan:
+    """The work plan of the forward and backward kernels for rows =
+    B * C rows of length t: n_seg warp segments per row, vec elements per
+    16-byte access."""
+    rows: int
+    t: int
+    vec: int
+    n_seg: int
+
+    @property
+    def warps(self) -> int:
+        return self.rows * self.n_seg
+
+    def segment(self, warp: int) -> tuple[int, int, int, int]:
+        """(row, s, lo, hi): warp `warp` runs the segment whose lane 0 starts
+        at output s of row `row`, and writes the outputs in [lo, hi) (empty
+        when lo >= hi). For segment k of the row, s is the position at or
+        before k * SEG_LEN whose address is 16-byte aligned when the
+        tensor's start is."""
+        row, k = divmod(warp, self.n_seg)
+        s = k * SEG_LEN - (row * self.t) % self.vec
+        return row, s, max(s, 0), min(s + SEG_LEN, self.t)
+
+
+def snake_plan(b: int, c: int, t: int, itemsize: int) -> SnakePlan:
+    """The plan for [b, c, t] of `itemsize`-byte elements (4 or 2): every
+    row gets the same n_seg = ceil((t + vec - 1) / SEG_LEN) segments, enough
+    for the row and its first segment's aligned start."""
+    vec = 16 // itemsize
+    return SnakePlan(rows=b * c, t=t, vec=vec, n_seg=-(-(t + vec - 1) // SEG_LEN))
 
 
 def _check_input(name: str, x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> None:
@@ -207,7 +295,10 @@ def snake_alias_cuda(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -
     or bfloat16; math in float32), alpha/beta [C]. Returns a new tensor of
     x's dtype. Launches on the current stream; does not synchronize."""
     global launches
-    out = _launch_forward("snake_alias", _library, x, alpha, beta)
+    _check_input("snake_alias_cuda", x, alpha, beta)
+    plan = snake_plan(*x.shape, x.element_size())
+    out = _launch_forward("snake_alias", _library, x, alpha, beta,
+                          after_shape=(plan.n_seg, SEG_LEN))
     launches += 1
     return out
 
@@ -220,10 +311,10 @@ def use_strips(c: int, t: int, b: int = 1) -> bool:
 def strip_fold(c: int, t: int, b: int = 1, slots: int = H100_BLOCK_SLOTS) -> int:
     """Segments per [T] row for the strips launch: as many as fill the
     card's `slots` resident blocks once with b * c * fold blocks, but no
-    segment shorter than STRIPS_MIN_SEG samples or longer than
-    STRIPS_MAX_SEG (a block walks its segment tile after tile, and measured
-    on an H100 a third tile a block already costs more than the fuller card
-    gives). Segment s of a row is [s * seg, min((s + 1) * seg, t)) with
+    segment shorter than one warp segment (STRIPS_MIN_SEG) or longer than
+    two rounds of the block's warps (STRIPS_MAX_SEG): a block's warps walk
+    its segment in warp segments, and a block that walks far leaves the card
+    to its slowest blocks. Segment s of a row is [s * seg, min((s + 1) * seg, t)) with
     seg = ceil(t / fold): the segments are non-empty and cover the row
     exactly once."""
     want = max(1, slots // (b * c))
@@ -304,12 +395,25 @@ def snake_alias_mma_cuda(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tenso
     return out
 
 
+_tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _ticket(device: torch.device, c: int, stream: int) -> torch.Tensor:
+    """The backward's per-channel tickets on `device` for `stream`: int32,
+    at least c, zero between launches (the kernel sets each back to 0)."""
+    buf = _tickets.get((device, stream))
+    if buf is None or buf.numel() < c:
+        buf = torch.zeros(max(c, 1024), dtype=torch.int32, device=device)
+        _tickets[(device, stream)] = buf
+    return buf
+
+
 def snake_alias_bwd_cuda(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                          dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels: (dx in x's dtype, dalpha and dbeta in
+    """Launch the backward kernel: (dx in x's dtype, dalpha and dbeta in
     float32 [C]) for the cotangent dy of snake_alias_cuda(x, alpha, beta).
-    dalpha/dbeta are reduced without atomics (bitwise reproducible).
-    Launches on the current stream; does not synchronize."""
+    One launch; dalpha/dbeta are reduced without float atomics (bitwise
+    reproducible). Launches on the current stream; does not synchronize."""
     global launches_bwd
     _check_input("snake_alias_bwd_cuda", x, alpha, beta)
     if dy.shape != x.shape or dy.device != x.device:
@@ -319,16 +423,18 @@ def snake_alias_bwd_cuda(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tenso
     dy = dy.to(x.dtype).contiguous()
     alpha, beta = _param(alpha, x.device), _param(beta, x.device)
     lib = _library_bwd()
-    tiles = -(-t // lib.snake_alias_backward_tile())
+    plan = snake_plan(b, c, t, x.element_size())
     dx = torch.empty_like(x)
-    parts = torch.empty((2, c, b * tiles), dtype=torch.float32, device=x.device)
+    parts = torch.empty((2, plan.warps), dtype=torch.float32, device=x.device)
     grads = torch.empty((2, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        ticket = _ticket(x.device, c, stream)
         err = lib.snake_alias_backward(
             x.data_ptr(), dy.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
-            parts[1].data_ptr(), alpha.data_ptr(), beta.data_ptr(), grads[0].data_ptr(),
-            grads[1].data_ptr(), _taps(), int(x.dtype == torch.bfloat16), b, c, t, stream)
+            parts[1].data_ptr(), ticket.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
+            grads[0].data_ptr(), grads[1].data_ptr(), _taps_bwd(),
+            int(x.dtype == torch.bfloat16), b, c, t, plan.n_seg, SEG_LEN, stream)
     if err:
         raise RuntimeError(f"snake_alias backward kernel launch failed: "
                            f"{lib.snake_alias_backward_error_string(err).decode()}")
