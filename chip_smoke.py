@@ -9,15 +9,14 @@ Phases (any failure exits non-zero without the final line):
 2. build: compiles the five sources under csrc/ (snake_alias, snake_alias_bwd,
    snake_alias_strips, snake_alias_mma, amp_iter) with nvcc, one process per
    source, started together, and times the build; where build/prev_kernels/
-   holds an earlier version's snake_alias.cu, snake_alias.cuh and
-   snake_alias_bwd.cu (a copy kept out of git), builds those two sources in
+   holds an earlier version's snake_alias_mma.cu, amp_iter.cu and
+   snake_alias.cuh (a copy kept out of git), builds those two sources in
    the same batch;
 3. kernel vs plain: the snake kernel against its plain PyTorch version at the
    five base-width stage shapes of a 1020-frame chunk and at odd shapes, in
    float32 and bfloat16, with CUDA-event times (inputs rotated over >100 MB
    so that the 50 MB L2 is cold; in the pipeline the input may still sit in
-   L2 after the convolution that wrote it); with build/prev_kernels/, the
-   earlier kernel timed on the same inputs in turns (new, old, old, new);
+   L2 after the convolution that wrote it);
 4. backward kernel vs plain: the snake backward kernel against
    torch.autograd.grad of the plain version at the five stage shapes of a
    training step (batch 16, 25-frame segments) and at the JAX package's test
@@ -62,11 +61,17 @@ Phases (any failure exits non-zero without the final line):
    shapes, float32 and bfloat16: strips bitwise equal to the direct kernel,
    mma within the float32 tolerance of the direct kernel and of the plain
    version, with the direct kernel's time on the same inputs beside theirs;
+   the mma kernel also at large arguments (x * 100) and at a start off
+   16-byte alignment; with build/prev_kernels/, the earlier mma kernel
+   timed on the same inputs in turns (new, old, old, new);
    the fused AMP iteration against its plain version at the 18 (shape, k, d)
    cases of a chunk, at the JAX package's test shapes and at odd ones (T
-   shorter than the halo, T = 1, C = 32, B = 2), with its time, its bound
-   and the time of the unfused route (two direct snake launches, two cuDNN
-   float32 convolutions, the add);
+   shorter than the halo, T = 1, C = 32, B = 2), at large arguments and at a
+   start off 16-byte alignment, with its time, its two bounds (the mixes on
+   the CUDA cores and as 3xTF32 on the tensor cores), the earlier kernel's
+   time in turns (with build/prev_kernels/) and the time of the unfused
+   route (two direct snake launches, two cuDNN float32 convolutions, the
+   add);
 10. alternative configurations: the same seeded weights through `svc_infer`
    with `amp_fused_iter=True`, `snake_variant="strips"` and
    `snake_variant="mma"` (1230, 200 and 1000 frames: 4 chunks each), every
@@ -173,6 +178,9 @@ CHECK_BATCH, CHECK_FRAMES, CHECK_SLICE_IDS = 2, 100, (0, 61)
 AMP_ODD_CASES = ((1, 10, 1280, 3, 1), (2, 16, 1024, 7, 3), (1, 12, 2560, 11, 5),
                  (1, 10, 1279, 7, 3), (1, 10, 30, 11, 5), (1, 10, 1, 11, 5),
                  (2, 32, 3000, 11, 5))
+# the fused iteration's large-argument and misaligned cases: a C = 20 and a
+# C = 10 shape of the chunk's kinds, and the widest K (C = 32, k = 11)
+AMP_CORNER_CASES = ((1, 20, 4000, 11, 5), (1, 10, 8000, 3, 1), (2, 32, 1000, 11, 5))
 STRIPS_ODD_SHAPES = ((2, 10, 5120), (2, 20, 6400), (2, 6, 8192), (2, 10, 3200))
 # fused iteration vs plain in f32, as the JAX package holds its kernel
 # (tests/test_snake_fused.py:242)
@@ -204,10 +212,14 @@ REPLACES_STRIPS = "whisper_vits_svc_tpu/ops/pallas_snake.py:539"
 SOURCE_STRIPS = "whisper_vits_svc_tpu_torch/csrc/snake_alias_strips.cu"
 REPLACES_MMA = "whisper_vits_svc_tpu/ops/pallas_snake.py:280"
 SOURCE_MMA = "whisper_vits_svc_tpu_torch/csrc/snake_alias_mma.cu"
-# an earlier version's forward and backward snake kernels, for the
-# comparison: a copy of their three files kept out of git (build/ is ignored)
+# an earlier version's tensor-core snake and fused AMP kernels, for the
+# comparison: a copy of their files (snake_alias_mma.cu, amp_iter.cu and the
+# snake_alias.cuh they include) kept out of git (build/ is ignored)
 PREV_DIR = Path(__file__).resolve().parent / "build" / "prev_kernels"
-PREV_SOURCES = (PREV_DIR / "snake_alias.cu", PREV_DIR / "snake_alias_bwd.cu")
+PREV_SOURCES = (PREV_DIR / "snake_alias_mma.cu", PREV_DIR / "amp_iter.cu")
+# H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet); a 3xTF32 product
+# takes three of its operations for each useful one
+TF32_OPS_PER_S = 495e12
 
 
 def check(ok: bool, msg: str) -> None:
@@ -295,41 +307,72 @@ def misalign(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def prev_fir_matrices() -> np.ndarray:
+    """The earlier mma kernel's [B_up hi, B_up lo, B_dn hi, B_dn lo]: B_up
+    [24, 32] (a window of 16 phases from P reads x[P - 3 + i]; columns
+    0..15 se, 16..31 so) and B_dn [48, 16] (16 outputs from q read E[q - 2 +
+    i] and O[q - 3 + i])."""
+    from whisper_vits_svc_tpu_torch.nn.snake import _polyphase_taps
+    ae, ao, _, _, de, do_, _, _ = _polyphase_taps(12, 12)
+    b_up = np.zeros((24, 32), np.float32)
+    b_dn = np.zeros((48, 16), np.float32)
+    for j in range(16):
+        for m in range(6):
+            b_up[j + m, j] = ae[m]
+            b_up[j + m + 1, 16 + j] = ao[m]
+            b_dn[j + m, j] = de[m]
+            b_dn[24 + j + m, j] = do_[m]
+    parts = []
+    for mat in (b_up, b_dn):
+        parts += [p.flatten() for p in snake_cuda.tf32_split(torch.from_numpy(mat))]
+    return torch.cat(parts).numpy()
+
+
+def prev_amp_tile(c: int, k: int, d: int) -> int:
+    """The earlier fused AMP kernel's tile: at most 480 outputs, four
+    [C, tile + 2 halo] buffers beside both kernels in a block's shared memory."""
+    cp = 4 * -(-c // 4)
+    halo = (k - 1) // 2 + 12 + d * (k - 1) // 2
+    width = (232448 - 1024 - 4 * (2 * k * c * cp + 6 * cp)) // (16 * c)
+    tile = min(480, width - 2 * halo)
+    return tile - tile % 32
+
+
 def load_prev() -> dict | None:
-    """The earlier forward and backward snake kernels from build/prev_kernels/
-    (built with the others in the build phase; the tile-based C ABI, one
-    block per 1024-sample tile and a second sum launch) behind wrappers, or
-    None where the directory is absent (a checkout from git)."""
+    """The earlier tensor-core snake and fused AMP kernels from
+    build/prev_kernels/ (built with the others in the build phase; their C
+    ABI: the mma kernel one block per 1024-output tile, the fused kernel
+    with its own tile and no fragment scratch) behind wrappers, or None
+    where the directory is absent (a checkout from git)."""
     if not all(p.exists() for p in (*PREV_SOURCES, PREV_DIR / "snake_alias.cuh")):
         return None
     ptr, num = ctypes.c_void_p, ctypes.c_int
     taps = ctypes.POINTER(ctypes.c_float)
-    fwd_lib = snake_cuda.load_library(PREV_SOURCES[0], "snake_alias_forward",
-                                      [ptr] * 4 + [taps] + [num] * 4 + [ptr],
-                                      "snake_alias_error_string")
-    bwd_lib = snake_cuda.load_library(PREV_SOURCES[1], "snake_alias_backward",
-                                      [ptr] * 9 + [taps] + [num] * 4 + [ptr],
-                                      "snake_alias_backward_error_string")
-    bwd_lib.snake_alias_backward_tile.argtypes, bwd_lib.snake_alias_backward_tile.restype = [], num
-    tile = bwd_lib.snake_alias_backward_tile()
+    mma_lib = snake_cuda.load_library(PREV_SOURCES[0], "snake_alias_mma_forward",
+                                      [ptr] * 5 + [taps] + [num] * 4 + [ptr],
+                                      "snake_alias_mma_error_string")
+    amp_lib = snake_cuda.load_library(PREV_SOURCES[1], "amp_iter_forward",
+                                      [ptr] * 10 + [taps] + [num] * 7 + [ptr],
+                                      "amp_iter_error_string")
+    fir = torch.from_numpy(prev_fir_matrices()).cuda()
 
-    def fwd(x, alpha, beta):
-        return snake_cuda._launch_forward("snake_alias", lambda: fwd_lib, x, alpha, beta)
+    def mma(x, alpha, beta):
+        return snake_cuda._launch_forward("snake_alias_mma", lambda: mma_lib, x, alpha, beta,
+                                          before_taps=(fir.data_ptr(),))
 
-    def bwd(x, alpha, beta, dy):
+    def amp(x, *args):
+        *params, k, d = args
         b, c, t = x.shape
-        dx = torch.empty_like(x)
-        parts = torch.empty((2, c, b * -(-t // tile)), dtype=torch.float32, device=x.device)
-        grads = torch.empty((2, c), dtype=torch.float32, device=x.device)
-        err = bwd_lib.snake_alias_backward(
-            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
-            parts[1].data_ptr(), alpha.data_ptr(), beta.data_ptr(), grads[0].data_ptr(),
-            grads[1].data_ptr(), snake_cuda._taps(), int(x.dtype == torch.bfloat16), b, c, t,
+        out = torch.empty_like(x)
+        params = [snake_cuda._param(p, x.device) for p in params]
+        err = amp_lib.amp_iter_forward(
+            x.data_ptr(), out.data_ptr(), *(p.data_ptr() for p in params), snake_cuda._taps(),
+            int(x.dtype == torch.bfloat16), b, c, t, k, d, prev_amp_tile(c, k, d),
             torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"earlier backward kernel launch failed: {err}")
-        return dx, grads[0], grads[1]
+        check(err == 0, f"earlier amp_iter kernel launch failed: {err}")
+        return out
 
-    return dict(fwd=fwd, bwd=bwd)
+    return dict(mma=mma, amp=amp)
 
 
 def timed_pair(row: dict, new, old, iters: int) -> None:
@@ -346,8 +389,8 @@ def check_kernel(shape, dtype, seed: int, variant: str = "direct", prev: dict | 
                  ) -> dict:
     """A forward snake kernel vs plain on the same inputs; "strips" and "mma"
     also vs the direct kernel (strips bitwise), with its time on the same
-    inputs; the direct kernel with the earlier kernel's time (`prev`) on the
-    same inputs.
+    inputs; with `prev` (a dict holding an earlier kernel of the variant)
+    also the earlier kernel's result and time on the same inputs.
     Returns errors and times."""
     fn = SNAKE_KERNELS[variant]
     xs, alpha, beta = snake_inputs(shape, dtype, seed)
@@ -379,14 +422,14 @@ def check_kernel(shape, dtype, seed: int, variant: str = "direct", prev: dict | 
                   f"snake strips kernel with fold 7 is not bitwise equal to direct at {shape}")
     old = None
     if prev is not None:
-        before = prev["fwd"](xs[0], alpha, beta)
+        before = prev[variant](xs[0], alpha, beta)
         row["prev_err"] = (before.float() - got.float()).abs().max().item()
         check(torch.allclose(before.float(), got.float(), **tol),
-              f"earlier snake kernel against the new one at {shape} {dtype}: "
+              f"earlier {variant} kernel against the new one at {shape} {dtype}: "
               f"{row['prev_err']}")
 
         def old(i=0):
-            return prev["fwd"](xs[i % n_buf], alpha, beta)
+            return prev[variant](xs[i % n_buf], alpha, beta)
     timed_pair(row, lambda i=0: fn(xs[i % n_buf], alpha, beta), old, iters)
     row["plain_ms"] = cuda_ms(lambda i=0: snake_alias_fused_cm(xs[i % n_buf], alpha, beta), iters)
     n = b * c * t
@@ -404,48 +447,101 @@ def amp_unfused(x, k1, b1, a1, be1, k2, b2, a2, be2, kernel_size: int, d: int):
     return F.conv1d(xt, k2, b2, padding=(kernel_size - 1) // 2) + x
 
 
-def check_amp(case, dtype, seed: int, timed: bool) -> dict:
+def amp_bounds(b: int, c: int, t: int, k: int, itemsize: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, tensor-core bound ms) of one fused
+    iteration: x read once, out written once, both kernels, biases and
+    snake parameters read; per element two k-tap C x C mixes (2 k C FMAs =
+    4 k C operations) and two snakes (2 x 58). The first bound takes the
+    mixes at the f32 rate of the CUDA cores, the second at a third of the
+    dense TF32 tensor-core rate (3xTF32), both counting no padding; the
+    snakes at the f32 rate."""
+    n = b * c * t
+    bnd, by = bound_ms(2 * n * itemsize + 4 * (2 * k * c * c + 6 * c),
+                       n * (4 * k * c + 2 * SNAKE_OPS_PER_ELEM))
+    tc = (3 * n * 4 * k * c / TF32_OPS_PER_S + n * 2 * SNAKE_OPS_PER_ELEM / F32_OPS_PER_S) * 1e3
+    return bnd, by, max(tc, (2 * n * itemsize) / HBM_BYTES_PER_S * 1e3)
+
+
+def check_amp(case, dtype, seed: int, timed: bool, prev: dict | None = None,
+              large: bool = False, misaligned: bool = False) -> dict:
     """amp_iter vs amp_iter_ref on the same inputs; with `timed` also the
-    kernel's, the plain version's and the unfused route's times."""
+    kernel's, the plain version's and the unfused route's times, and with
+    `prev` the earlier kernel's result and time (in turns with the new one).
+    `large`: x * 100, so that the first snake sees |e^alpha x| ~ 1e3, with
+    the mixes' weights at 1e-3 so that the second snake's argument stays ~10
+    (with the main cases' weights c1 reaches ~1e3, where the second snake is
+    so ill-conditioned that the plain version in f32 misses its own f64
+    value by several times the tolerance; tests/test_torch_tensor_core_plan.py).
+    `misaligned`: x starts 4 bytes past a 16-byte boundary."""
     b, c, t, k, d = case
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def r(*shape):
         return torch.randn(*shape, device="cuda", generator=g)
 
-    params = (r(c, c, k) * 0.1, r(c) * 0.1, r(c) * 0.3, r(c) * 0.3,
-              r(c, c, k) * 0.1, r(c) * 0.1, r(c) * 0.3, r(c) * 0.3)
+    w = 1e-3 if large else 0.1
+    params = (r(c, c, k) * w, r(c) * 0.1, r(c) * 0.3, r(c) * 0.3,
+              r(c, c, k) * w, r(c) * 0.1, r(c) * 0.3, r(c) * 0.3)
     n_buf = max(1, -(-100_000_000 // (b * c * t * 4))) if timed else 1
-    xs = [r(b, c, t).to(dtype) for _ in range(n_buf)]
+    xs = [(r(b, c, t) * (100.0 if large else 1.0)).to(dtype) for _ in range(n_buf)]
+    if misaligned:
+        xs = [misalign(x) for x in xs]
     got = amp_cuda.amp_iter_cuda(xs[0], *params, k, d)
     want = amp_cuda.amp_iter_ref(xs[0].float(), *params, k, d).to(dtype)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = AMP_F32_TOL if dtype == torch.float32 else BF16_TOL
+    label = f"{case} {dtype}" + (" large arguments" if large else "") + (
+        " misaligned" if misaligned else "")
     check(torch.allclose(got.float(), want.float(), **tol),
-          f"amp_iter disagrees at {case} {dtype}: max abs err {err}")
-    n = b * c * t
-    # x read once, out written once, both kernels, biases and snake parameters
-    # read; per element two k-tap C x C mixes (2 k C FMAs = 4 k C operations)
-    # and two snakes (2 x 58)
-    bnd, by = bound_ms(2 * n * xs[0].element_size() + 4 * (2 * k * c * c + 6 * c),
-                       n * (4 * k * c + 2 * SNAKE_OPS_PER_ELEM))
+          f"amp_iter disagrees at {label}: max abs err {err}")
+    bnd, by, tc = amp_bounds(b, c, t, k, xs[0].element_size())
     row = dict(case=list(case), dtype=str(dtype).removeprefix("torch."), max_abs_err=err,
-               tile=amp_cuda.amp_tile(c, k, d), bound_ms=bnd, bound_by=by)
+               tile=amp_cuda.amp_tile(b, c, t, k, d), bound_ms=bnd, bound_by=by,
+               tc_bound_ms=tc, large=large, misaligned=misaligned)
+    old = None
+    if prev is not None:
+        before = prev["amp"](xs[0], *params, k, d)
+        row["prev_err"] = (before.float() - got.float()).abs().max().item()
+
+        def old(i=0):
+            return prev["amp"](xs[i % n_buf], *params, k, d)
     if timed:
-        row["kernel_ms"] = cuda_ms(
-            lambda i=0: amp_cuda.amp_iter_cuda(xs[i % n_buf], *params, k, d), 20)
+        timed_pair(row, lambda i=0: amp_cuda.amp_iter_cuda(xs[i % n_buf], *params, k, d), old,
+                   20)
         row["unfused_ms"] = cuda_ms(lambda i=0: amp_unfused(xs[i % n_buf], *params, k, d), 20)
         row["plain_ms"] = cuda_ms(
             lambda i=0: amp_cuda.amp_iter_ref(xs[i % n_buf], *params, k, d), 10)
     return row
 
 
-def check_bwd_kernel(shape, dtype, seed: int, prev: dict | None = None) -> dict:
+def check_mma_corner(shape, dtype, seed: int, large: bool, misaligned: bool) -> dict:
+    """The mma kernel against its plain version and the direct kernel at a
+    large-argument or misaligned input (untimed), at the same tolerances."""
+    xs, alpha, beta = snake_inputs(shape, dtype, seed, large=large, n_buf=1)
+    x = misalign(xs[0]) if misaligned else xs[0]
+    got = snake_cuda.snake_alias_mma_cuda(x, alpha, beta)
+    want = snake_alias_fused_cm(x.float(), alpha, beta).to(dtype)
+    direct = snake_cuda.snake_alias_cuda(x, alpha, beta)
+    torch.cuda.synchronize()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    label = f"{shape} {dtype}" + (" large arguments" if large else "") + (
+        " misaligned" if misaligned else "")
+    errs = {"plain": (got.float() - want.float()).abs().max().item(),
+            "direct": (got.float() - direct.float()).abs().max().item()}
+    check(torch.allclose(got.float(), want.float(), **tol),
+          f"snake mma kernel disagrees at {label}: max abs err {errs['plain']}")
+    check(torch.allclose(got.float(), direct.float(), **tol),
+          f"snake mma kernel against direct at {label}: max abs diff {errs['direct']}")
+    return dict(shape=list(shape), dtype=str(dtype).removeprefix("torch."), large=large,
+                misaligned=misaligned, errs=errs,
+                max_abs_x_alpha=(x.float().abs().amax(dim=(0, 2)) * alpha.exp()).max().item())
+
+
+def check_bwd_kernel(shape, dtype, seed: int) -> dict:
     """Backward kernel vs plain backward (autograd through the plain forward,
     in float32 on the same rounded inputs); bitwise-equal dalpha/dbeta across
-    two calls; returns errors and times (the earlier kernel's beside them with
-    `prev`)."""
+    two calls; returns errors and times."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, c, t = shape
     alpha = torch.randn(c, device="cuda", generator=g) * 0.3
@@ -470,19 +566,8 @@ def check_bwd_kernel(shape, dtype, seed: int, prev: dict | None = None) -> dict:
     iters = 50 if b * c * t < 2_000_000 else 20
     row = dict(shape=list(shape), dtype=str(dtype).removeprefix("torch."),
                max_abs_err=max(errs.values()), errs=errs)
-    old = None
-    if prev is not None:
-        before = prev["bwd"](xs[0], alpha, beta, dys[0])
-        row["prev_err"] = max((p.float() - a.float()).abs().max().item()
-                              for p, a in zip(before, got))
-        check(all(torch.allclose(p.float(), a.float(), **tol) for p, a in zip(before, got)),
-              f"earlier backward kernel against the new one at {shape} {dtype}: "
-              f"{row['prev_err']}")
-
-        def old(i=0):
-            return prev["bwd"](xs[i % n_buf], alpha, beta, dys[i % n_buf])
-    timed_pair(row, lambda i=0: snake_cuda.snake_alias_bwd_cuda(
-        xs[i % n_buf], alpha, beta, dys[i % n_buf]), old, iters)
+    row["kernel_ms"] = cuda_ms(lambda i=0: snake_cuda.snake_alias_bwd_cuda(
+        xs[i % n_buf], alpha, beta, dys[i % n_buf]), iters)
     row["plain_ms"] = cuda_ms(lambda i=0: snake_cuda.snake_alias_bwd_plain(
         xs[i % n_buf], alpha, beta, dys[i % n_buf]), iters)
     n = b * c * t
@@ -541,25 +626,36 @@ def per_call_sum(rows, stages, extra: tuple[str, ...] = ()) -> tuple[dict, str]:
     return total, "/".join(sorted(bound_by))
 
 
-def alt_kernel_phase(hp, stages) -> dict:
+def alt_kernel_phase(hp, stages, prev: dict | None) -> dict:
     """The strips, mma and fused-iteration kernels against their plain
-    versions; per-chunk sums over the calls each takes on its path."""
+    versions; per-chunk sums over the calls each takes on its path; with
+    `prev`, the earlier mma and fused kernels timed in turns with the new
+    ones at the chunk's shapes."""
     out = {}
     both = (torch.float32, torch.bfloat16)
-    shapes = [shape for shape, _ in stages] + list(ODD_SHAPES) + list(STRIPS_ODD_SHAPES)
+    stage_list = [shape for shape, _ in stages]
+    shapes = stage_list + list(ODD_SHAPES) + list(STRIPS_ODD_SHAPES)
     for variant in ("strips", "mma"):
-        rows = [check_kernel(shape, dtype, seed=400 + i, variant=variant)
+        rows = [check_kernel(shape, dtype, seed=400 + i, variant=variant,
+                             prev=prev if variant == "mma" and shape in stage_list else None)
                 for i, shape in enumerate(shapes) for dtype in both]
         for r in rows:
             print(f"[kernel-{variant}] " + json.dumps(r), flush=True)
         taken = [(shape, calls) for shape, calls in stages
                  if variant == "mma" or snake_cuda.use_strips(shape[1], shape[2], shape[0])]
-        total, by = per_call_sum(rows, taken, extra=("direct_ms",))
+        extra = ("direct_ms",) + (("prev_ms",) if prev and variant == "mma" else ())
+        total, by = per_call_sum(rows, taken, extra=extra)
         n_calls = sum(calls for _, calls in taken)
         print(f"[kernel-{variant}] per {CHUNK_FRAMES}-frame chunk, f32, the {n_calls} calls "
               f"the variant takes: {json.dumps(total)}", flush=True)
         out |= {variant: total, f"{variant}_rows": rows, f"{variant}_bound_by": by,
                 f"{variant}_calls": n_calls}
+    corners = [(shape, True, False) for shape in LARGE_ARG_SHAPES]
+    corners += [((2, 16, 1024), False, True), ((16, 160, 125), False, True)]
+    for i, (shape, large, misaligned) in enumerate(corners):
+        for dtype in both:
+            r = check_mma_corner(shape, dtype, seed=450 + i, large=large, misaligned=misaligned)
+            print("[kernel-mma-corner] " + json.dumps(r), flush=True)
 
     check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on for the plain convolutions")
     cases = [(b, c, t, k, d) for (b, c, t), _ in stages if amp_cuda.use_fused_iter(c, t, b)
@@ -567,18 +663,29 @@ def alt_kernel_phase(hp, stages) -> dict:
              for d in dil]
     rows = []
     for i, case in enumerate(cases):
-        rows.append(check_amp(case, torch.float32, seed=500 + i, timed=True))
+        rows.append(check_amp(case, torch.float32, seed=500 + i, timed=True, prev=prev))
         rows.append(check_amp(case, torch.bfloat16, seed=500 + i, timed=False))
     for i, case in enumerate(AMP_ODD_CASES):
         rows += [check_amp(case, dtype, seed=600 + i, timed=False) for dtype in both]
+    for i, case in enumerate(AMP_CORNER_CASES):
+        for dtype in both:
+            rows.append(check_amp(case, dtype, seed=650 + i, timed=False, large=True))
+            rows.append(check_amp(case, dtype, seed=660 + i, timed=False, misaligned=True))
     for r in rows:
         print("[kernel-amp] " + json.dumps(r), flush=True)
     timed = [r for r in rows if "kernel_ms" in r]
-    total = {name: sum(r[column] for r in timed)
-             for name, column in (("ms", "kernel_ms"), ("plain_ms", "plain_ms"),
-                                  ("bound_ms", "bound_ms"), ("unfused_ms", "unfused_ms"))}
+    columns = (("ms", "kernel_ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+               ("tc_bound_ms", "tc_bound_ms"), ("unfused_ms", "unfused_ms"))
+    columns += (("prev_ms", "prev_ms"),) if prev else ()
+    total = {name: sum(r[column] for r in timed) for name, column in columns}
     print(f"[kernel-amp] per {CHUNK_FRAMES}-frame chunk, f32, {len(timed)} calls: "
           f"{json.dumps(total)}", flush=True)
+    if prev:
+        print(f"[compare-prev] f32, CUDA events, cold L2, same inputs, in turns: mma "
+              f"{out['mma']['ms']:.4f} ms per chunk (earlier {out['mma']['prev_ms']:.4f}, "
+              f"direct {out['mma']['direct_ms']:.4f}); amp_iter {total['ms']:.4f} ms per chunk "
+              f"(earlier {total['prev_ms']:.4f}, unfused {total['unfused_ms']:.4f})",
+              flush=True)
     out |= {"amp": total, "amp_rows": rows, "amp_calls": len(timed),
             "amp_bound_by": "/".join(sorted({r["bound_by"] for r in timed}))}
     return out
@@ -943,7 +1050,7 @@ def main() -> int:
     prev = load_prev()
     check(len(sources) == 5, f"{len(sources)} kernel sources, expected 5")
     print(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s"
-          + (f" (with the earlier two from {PREV_DIR.name}/)" if prev else
+          + (f" (with the earlier mma and amp_iter from {PREV_DIR.name}/)" if prev else
              "; no build/prev_kernels/: no comparison with earlier kernels"), flush=True)
 
     hp = config_from_dict(BASE_MODEL_CONFIG)
@@ -951,14 +1058,13 @@ def main() -> int:
     rows = []
     for i, (shape, _) in enumerate(stages):
         for dtype in (torch.float32, torch.bfloat16):
-            rows.append(check_kernel(shape, dtype, seed=i, prev=prev))
+            rows.append(check_kernel(shape, dtype, seed=i))
     for i, shape in enumerate(ODD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             rows.append(check_kernel(shape, dtype, seed=100 + i))
     for r in rows:
         print("[kernel] " + json.dumps(r), flush=True)
-    cmp_cols = ("prev_ms",) if prev else ()
-    per_chunk, bound_by = per_call_sum(rows, stages, extra=cmp_cols)
+    per_chunk, bound_by = per_call_sum(rows, stages)
     n_calls = sum(calls for _, calls in stages)
     print(f"[kernel] per 1020-frame chunk, f32, {n_calls} calls: {json.dumps(per_chunk)}",
           flush=True)
@@ -969,11 +1075,10 @@ def main() -> int:
     bwd_rows = []
     for i, shape in enumerate([s for s, _ in train_stages] + list(BWD_ODD_SHAPES)):
         for dtype in (torch.float32, torch.bfloat16):
-            bwd_rows.append(check_bwd_kernel(shape, dtype, seed=200 + i,
-                                             prev=prev if i < len(train_stages) else None))
+            bwd_rows.append(check_bwd_kernel(shape, dtype, seed=200 + i))
     for r in bwd_rows:
         print("[kernel-bwd] " + json.dumps(r), flush=True)
-    per_step, bwd_bound_by = per_call_sum(bwd_rows, train_stages, extra=cmp_cols)
+    per_step, bwd_bound_by = per_call_sum(bwd_rows, train_stages)
     n_train_calls = sum(calls for _, calls in train_stages)
     print(f"[kernel-bwd] per training step (batch {hp.train.batch_size}, {seg_frames}-frame "
           f"segments), f32, {n_train_calls} calls: {json.dumps(per_step)}", flush=True)
@@ -981,19 +1086,12 @@ def main() -> int:
     fwd_train_rows = []
     for i, (shape, _) in enumerate(train_stages):
         for dtype in (torch.float32, torch.bfloat16):
-            fwd_train_rows.append(check_kernel(shape, dtype, seed=300 + i, prev=prev))
+            fwd_train_rows.append(check_kernel(shape, dtype, seed=300 + i))
     for r in fwd_train_rows:
         print("[kernel-train] " + json.dumps(r), flush=True)
-    fwd_per_step, fwd_step_bound_by = per_call_sum(fwd_train_rows, train_stages, extra=cmp_cols)
+    fwd_per_step, fwd_step_bound_by = per_call_sum(fwd_train_rows, train_stages)
     print(f"[kernel-train] forward per training step, f32, {n_train_calls} calls: "
           f"{json.dumps(fwd_per_step)}; backward {json.dumps(per_step)}", flush=True)
-
-    if prev:
-        print(f"[compare-prev] f32, CUDA events, cold L2, same inputs, in turns: forward "
-              f"{per_chunk['ms']:.4f} ms per chunk (earlier {per_chunk['prev_ms']:.4f}), "
-              f"{fwd_per_step['ms']:.4f} ms per step (earlier {fwd_per_step['prev_ms']:.4f}); "
-              f"backward {per_step['ms']:.4f} ms per step (earlier {per_step['prev_ms']:.4f})",
-              flush=True)
 
     # the corners of the work plan, and large arguments, forward and backward
     corners = [(shape, False, False) for shape in PLAN_ODD_SHAPES + BWD_ODD_SHAPES]
@@ -1005,7 +1103,7 @@ def main() -> int:
             print("[kernel-corner] " + json.dumps(r), flush=True)
     print(f"[kernel-corner] {2 * len(corners)} cases within the tolerances", flush=True)
 
-    alt = alt_kernel_phase(hp, stages)
+    alt = alt_kernel_phase(hp, stages, prev)
 
     # requests at full base width on the card
     model = pipeline.build_infer_model(hp, device="cuda", seed=0)
@@ -1135,7 +1233,6 @@ def main() -> int:
                            if r["dtype"] == "float32"),
         "ms": per_chunk["ms"], "plain_ms": per_chunk["plain_ms"],
         "bound_ms": per_chunk["bound_ms"], "bound_by": bound_by, "library_ms": None,
-        "prev_ms": per_chunk.get("prev_ms"),
         "per": f"one {CHUNK_FRAMES}-frame chunk at base width, float32, {n_calls} calls",
         "launches_by_path": {"svc_infer": launches, "train_step": train_fwd},
         "train_step": fwd_per_step | {
@@ -1148,7 +1245,6 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows if r["dtype"] == "float32"),
         "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
         "bound_ms": per_step["bound_ms"], "bound_by": bwd_bound_by, "library_ms": None,
-        "prev_ms": per_step.get("prev_ms"),
         "per": f"one training step at base width (batch {hp.train.batch_size}, "
                f"{seg_frames}-frame segments), float32, {n_train_calls} calls",
         "launches_by_path": {"svc_infer": infer_bwd, "train_step": train_bwd},
@@ -1163,6 +1259,7 @@ def main() -> int:
         "ms": alt["amp"]["ms"], "plain_ms": alt["amp"]["plain_ms"],
         "bound_ms": alt["amp"]["bound_ms"], "bound_by": alt["amp_bound_by"],
         "library_ms": None, "unfused_ms": alt["amp"]["unfused_ms"],
+        "tc_bound_ms": alt["amp"]["tc_bound_ms"], "prev_ms": alt["amp"].get("prev_ms"),
         "per": f"{chunk}, {alt['amp_calls']} calls (amp_fused_iter=True)",
         "launches_by_path": {"svc_infer": counts_default["amp"],
                              "svc_infer_fused": fused_run["counts"]["amp"],
@@ -1178,7 +1275,7 @@ def main() -> int:
                                if r["dtype"] == "float32"),
             "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": alt[f"{variant}_bound_by"], "library_ms": None,
-            "direct_ms": total["direct_ms"],
+            "direct_ms": total["direct_ms"], "prev_ms": total.get("prev_ms"),
             "per": f"{chunk}, {alt[f'{variant}_calls']} calls "
                    f"(snake_variant=\"{variant}\")",
             "launches_by_path": {"svc_infer": counts_default[variant],

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Registers, spills and SASS instruction counts of the snake kernels.
+"""Registers, spills and SASS instruction counts of the package's kernels.
 
     python3 sass_counts.py [--json out/sass_counts.json] [--dump DIR]
 
-Compiles csrc/snake_alias.cu and csrc/snake_alias_bwd.cu with the package's
-nvcc flags plus `-Xptxas -v`, and, where build/prev_kernels/ holds an
-earlier version's snake_alias.cu, snake_alias.cuh and snake_alias_bwd.cu
-(kept out of git), those too; prints ptxas's registers and spills of every kernel, then counts
-the SASS instructions of each kernel (`cuobjdump -sass`) by opcode: shared
+Compiles csrc/snake_alias.cu, snake_alias_bwd.cu, snake_alias_mma.cu and
+amp_iter.cu with the package's nvcc flags plus `-Xptxas -v`, and, where
+build/prev_kernels/ holds an earlier version's snake_alias_mma.cu and
+amp_iter.cu with their snake_alias.cuh (kept out of git), those too; prints
+ptxas's registers, spills and stack frame of every kernel, then counts the
+SASS instructions of each kernel (`cuobjdump -sass`) by opcode: shared
 loads and stores (LDS, STS), shuffles (SHFL), f32 arithmetic (FFMA, FMUL,
-FADD), the special-function unit (MUFU), global and local memory (LDG, STG,
-LDL, STL) and the total. The counts are static: every instruction of the
-kernel once, cold paths included (element by element loads at row edges;
-in the earlier kernels sinf's reduction for |x| > ~1e5). Needs the CUDA toolkit (nvcc, cuobjdump),
-not a card.
+FADD), the special-function unit (MUFU), tensor-core products (HMMA),
+global and local memory (LDG, STG, LDL, STL), asynchronous copies (LDGSTS,
+UTMALDG) and the total. The counts are static: every instruction of the
+kernel once, cold paths included (element by element loads at row edges,
+sinf's reduction for |x| > ~1e5). Needs the CUDA toolkit (nvcc,
+cuobjdump), not a card.
 """
 
 from __future__ import annotations
@@ -27,11 +29,12 @@ import tempfile
 from collections import Counter
 from pathlib import Path
 
-from whisper_vits_svc_tpu_torch.ops import snake_cuda
+from whisper_vits_svc_tpu_torch.ops import amp_cuda, snake_cuda
 
 ROOT = Path(__file__).resolve().parent
 PREV_DIR = ROOT / "build" / "prev_kernels"
-CLASSES = ("LDS", "STS", "SHFL", "FFMA", "FMUL", "FADD", "MUFU", "LDG", "STG", "LDL", "STL")
+CLASSES = ("LDS", "STS", "SHFL", "FFMA", "FMUL", "FADD", "MUFU", "HMMA", "LDG", "STG", "LDL",
+           "STL", "LDGSTS", "UTMALDG")
 
 
 def compile_and_count(source: Path, label: str, dump: Path | None = None) -> list[dict]:
@@ -60,6 +63,9 @@ def compile_and_count(source: Path, label: str, dump: Path | None = None) -> lis
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             usage.setdefault(name, {})["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            usage.setdefault(name, {})["stack_bytes"] = int(m.group(1))
     rows, counts, name = [], None, None
     for line in sass.splitlines() + ["Function : <end>"]:
         m = re.search(r"Function : (\S+)", line)
@@ -82,11 +88,11 @@ def main() -> int:
     ap.add_argument("--json", type=Path, default=None, help="also write the rows here")
     ap.add_argument("--dump", type=Path, default=None, help="write each source's SASS here")
     args = ap.parse_args()
-    sources = [(snake_cuda.SOURCE, "new"), (snake_cuda.SOURCE_BWD, "new")]
-    if all((PREV_DIR / n).exists() for n in ("snake_alias.cu", "snake_alias.cuh",
-                                            "snake_alias_bwd.cu")):
-        sources += [(PREV_DIR / "snake_alias.cu", "prev"),
-                    (PREV_DIR / "snake_alias_bwd.cu", "prev")]
+    sources = [(src, "new") for src in (snake_cuda.SOURCE, snake_cuda.SOURCE_BWD,
+                                         snake_cuda.SOURCE_MMA, amp_cuda.SOURCE)]
+    prev = ("snake_alias_mma.cu", "amp_iter.cu")
+    if all((PREV_DIR / n).exists() for n in (*prev, "snake_alias.cuh")):
+        sources += [(PREV_DIR / n, "prev") for n in prev]
     rows = []
     for source, label in sources:
         rows += compile_and_count(source, label, args.dump)

@@ -216,13 +216,19 @@ def test_cuda_entry_refuses_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("c,k,d", [(10, 3, 1), (20, 11, 5), (32, 11, 5), (32, 3, 1), (1, 7, 3)])
 def test_amp_tile_fits_shared_memory(c, k, d):
-    """The tile the wrapper picks keeps the kernel's shared memory (two
-    folded kernels padded to 4 output channels, 6 parameter vectors, four
-    [C, tile + 2 halo] buffers) inside a Hopper block's 227 KB."""
-    tile = amp_cuda.amp_tile(c, k, d)
-    cp = 4 * -(-c // 4)
-    smem = 4 * (2 * k * c * cp + 6 * cp + 4 * c * (tile + 2 * amp_cuda.halo(k, d)))
-    assert tile % 32 == 0 and 32 <= tile <= amp_cuda.MAX_TILE
-    assert smem <= 232448
-    assert amp_cuda.halo(k, d) == (k - 1) // 2 + 12 + d * (k - 1) // 2 <= 42
+    """The tile the wrapper picks keeps the kernel's shared memory (R1: x,
+    then c1, f32; R2: s1, then s2, TF32 hi and lo as float2; C rows each;
+    the staged weight fragments) inside a Hopper block's 227 KB, and two
+    blocks inside an SM's 228 KB for C <= 20, at a long stage and at a short
+    one."""
+    for t in (163200, 3000):
+        tile = amp_cuda.amp_tile(1, c, t, k, d)
+        g = amp_cuda.amp_geometry(k, d, tile)
+        frags = 16 * min(-(-k * c // 8), amp_cuda.MAX_STAGED_KSTEPS) * 32 * -(-c // 8)
+        smem = c * (4 * g.lr1 + 8 * g.ls2) + frags
+        assert tile % 8 == 0 and amp_cuda.MIN_TILE <= tile <= amp_cuda.MAX_TILE
+        assert smem == g.smem_bytes(c, k) <= 232448
+        if c <= 20:
+            assert 2 * (smem + 1024) <= amp_cuda.SMEM_PER_SM
+        assert g.r2 + 6 + g.r1 <= 36 and -g.s1_lo - g.e1 == g.r2 + 6 + g.r1
     assert amp_cuda.use_fused_iter(c, 1) and not amp_cuda.use_fused_iter(40, 81600)

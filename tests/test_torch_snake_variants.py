@@ -102,15 +102,16 @@ def _windows(x, start, n_windows, width):
 def test_3xtf32_banded_fir_reproduces_the_f32_product():
     """The scheme the mma kernel relies on, in plain torch: both operands
     masked to TF32, three products (lo x hi, hi x lo, hi x hi) summed in f32,
-    reproduce the f32 banded up-FIR product to 2e-6, where one TF32 product
+    reproduce the f32 banded down-FIR product to 2e-6, where one TF32 product
     does not (about 1e-3)."""
     rng = np.random.default_rng(1)
-    x = torch.from_numpy((rng.standard_normal(16 * 64 + 24) * 1.5).astype(np.float32))
-    a = _windows(x, 0, 64, 24)  # [64 windows, K = 24]
-    b_up = torch.from_numpy(snake_cuda.fir_matrices()[0])
-    want = (a.double() @ b_up.double()).float()
+    e, o = (torch.from_numpy((rng.standard_normal(16 * 64 + 24) * 1.5).astype(np.float32))
+            for _ in range(2))
+    a = torch.cat([_windows(e, 0, 64, 24), _windows(o, 0, 64, 24)], dim=1)  # [64, K = 48]
+    b_dn = torch.from_numpy(snake_cuda.down_fir_matrix())
+    want = (a.double() @ b_dn.double()).float()
     a_hi, a_lo = snake_cuda.tf32_split(a)
-    b_hi, b_lo = snake_cuda.tf32_split(b_up)
+    b_hi, b_lo = snake_cuda.tf32_split(b_dn)
     one = a_hi @ b_hi
     three = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
     assert float((three - want).abs().max()) <= 2e-6
@@ -118,38 +119,44 @@ def test_3xtf32_banded_fir_reproduces_the_f32_product():
 
 
 def test_mma_windows_and_matrices_give_the_plain_version():
-    """The mma kernel's data flow in plain torch (f64): per 1024-sample tile
-    16 rows of 64 outputs, each with its own halo; 5 up windows of 16 phase
-    positions (K = 24, B_up [24, 32]) and 4 down windows of 16 outputs
-    (E and O windows side by side, K = 48, B_dn [48, 16]); clamps against
-    global positions. Equals snake_alias_fused_cm at a ragged length."""
-    t = 1031  # two tiles, the second nearly empty
+    """The mma kernel's data flow in plain torch (f64): the direct kernel's
+    warp segments (`snake_plan`), the phases at the 256 positions s - 3 ..
+    s + 252 of a segment (clamps against global positions), then a 16 x 16
+    output tile per segment, row r the outputs s + 16 r + j, from E and O
+    windows of 24 from s - 3 + 16 r side by side (K = 48, B_dn [48, 16]);
+    outputs past the segment's 248 dropped. Equals snake_alias_fused_cm at
+    ragged lengths, a start off 16-byte alignment included."""
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.standard_normal(t) * 1.5)
     alpha, beta = torch.tensor([0.2], dtype=torch.float64), torch.tensor([-0.1], dtype=torch.float64)
-    want = snake_alias_fused_cm(x[None, None], alpha, beta)[0, 0]
-    b_up, b_dn = (torch.from_numpy(m).double() for m in snake_cuda.fir_matrices())
+    b_dn = torch.from_numpy(snake_cuda.down_fir_matrix()).double()
     a, ib = torch.exp(alpha), 1.0 / (torch.exp(beta) + 1e-9)
 
     def snake(u):
         return u + ib * torch.sin(u * a) ** 2
 
     ae, ao = (torch.from_numpy(np.asarray(v, np.float64)) for v in _polyphase_taps(12, 12)[:2])
-    clamp = lambda p: x[p.clamp(0, t - 1)]  # noqa: E731
-    head = snake((ae * clamp(torch.arange(-3, 3))).sum())
-    tail = snake((ao * clamp(torch.arange(t - 3, t + 3))).sum())
-    out = torch.zeros(t, dtype=torch.float64)
-    for t0 in range(0, t, 1024):
-        for r in range(16):
-            xs = clamp(t0 + 64 * r - 11 + torch.arange(88))
-            up = _windows(xs, 0, 5, 24) @ b_up  # [5, 32]: se | so at l = 16 w + j
-            pos = t0 + 64 * r - 8 + torch.arange(80)
-            ph = [torch.where(pos < 0, head, torch.where(pos > t - 1, tail, snake(p.reshape(80))))
-                  for p in (up[:, :16], up[:, 16:])]
-            win = torch.cat([_windows(ph[0], 6, 4, 24), _windows(ph[1], 5, 4, 24)], dim=1)
-            q = t0 + 64 * r + torch.arange(64)
-            out[q[q < t]] = (win @ b_dn).reshape(64)[q < t]
-    torch.testing.assert_close(out, want, atol=1e-12, rtol=1e-12)
+    for t in (1031, 701, 5):  # rows 1 and 2 of T = 701 start off 16-byte alignment
+        x = torch.from_numpy(rng.standard_normal((3, t)) * 1.5)
+        want = snake_alias_fused_cm(x[None], alpha.expand(3), beta.expand(3))[0]
+        plan = snake_cuda.snake_plan(1, 3, t, 4)
+        out = torch.full((3, t), float("nan"), dtype=torch.float64)
+        for w in range(plan.warps):
+            row, s, lo, hi = plan.segment(w)
+            clamp = lambda p: x[row][p.clamp(0, t - 1)]  # noqa: E731
+            head = snake((ae * clamp(torch.arange(-3, 3))).sum())
+            tail = snake((ao * clamp(torch.arange(t - 3, t + 3))).sum())
+            pos = s - 3 + torch.arange(256 + 16)
+            xs = clamp(pos[:, None] - 3 + torch.arange(7)[None, :])  # x[p - 3 .. p + 3]
+            se, so = xs[:, :6] @ ae, xs[:, 1:] @ ao
+            ph = [torch.where(pos < 0, head, torch.where(pos > t - 1, tail, snake(p)))
+                  for p in (se, so)]
+            ph = [torch.where(torch.arange(256 + 16) < 256, p, 0.0) for p in ph]  # zero pad
+            win = torch.cat([_windows(ph[0], 0, 16, 24), _windows(ph[1], 0, 16, 24)], dim=1)
+            y = (win @ b_dn).reshape(256)[: snake_cuda.SEG_LEN]
+            q = s + torch.arange(snake_cuda.SEG_LEN)
+            keep = (q >= lo) & (q < hi)
+            out[row, q[keep]] = y[keep]
+        torch.testing.assert_close(out, want, atol=1e-12, rtol=1e-12)
 
 
 def test_variant_under_autograd_raises():

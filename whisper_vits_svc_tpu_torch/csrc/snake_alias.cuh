@@ -1,9 +1,11 @@
 // Device code shared by the snake kernels (snake_alias.cu, snake_alias_bwd.cu,
 // snake_alias_strips.cu, snake_alias_mma.cu) and the fused AMP iteration
 // (amp_iter.cu): the taps, the pointwise snake and its sine, clamped loads,
-// the 16-byte run loads and stores, and the warp body that turns one segment
-// of a (b, c) row into outputs. snake_alias.cu states what the function
-// computes.
+// the 16-byte run loads and stores, the 3xTF32 tensor-core product, and the
+// warp body that turns one segment of a (b, c) row into outputs
+// (snake_phases, then down_fir; the mma and the AMP kernels run
+// snake_phases too, so their sine arguments are the direct kernel's).
+// snake_alias.cu states what the function computes.
 //
 // The unit of work is a warp segment: one warp, kSegLen = 31 * kRun
 // consecutive outputs of one row. Lane l holds the run of kRun outputs
@@ -80,6 +82,40 @@ __device__ __forceinline__ void sin_sq_sin2(float th, float& sq, float& s2) {
   s2 = 2.0f * s * c;
 }
 
+// TF32 on the tensor cores (snake_alias_mma.cu, amp_iter.cu): v rounded to
+// the nearest TF32 number (ties away from zero), as its bits
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo up to 2^-22 |v|, both TF32: an operand of a 3xTF32 product
+__device__ __forceinline__ void tf32_split(float v, float& hi, float& lo) {
+  hi = __uint_as_float(tf32(v));
+  lo = __uint_as_float(tf32(v - hi));
+}
+
+// c += a b, one m16n8k8 TF32 product with f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b at f32 accuracy from operands split once: lo x hi, hi x lo,
+// hi x hi (lo x lo, about 2^-22 of the product, is dropped)
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(c, a_lo, b_hi);
+  mma_tf32(c, a_hi, b_lo);
+  mma_tf32(c, a_hi, b_hi);
+}
+
 template <typename T>
 __device__ __forceinline__ float x_at(const T* row, int p, int len) {
   return to_f32(row[min(max(p, 0), len - 1)]);
@@ -126,6 +162,20 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[kRun]) {
 __device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
   return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
          (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
+}
+
+// p[0] = v0, p[1] = v1 in one access (p aligned to two elements)
+template <typename T>
+__device__ __forceinline__ bool aligned_pair(const T* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (2 * sizeof(T) - 1)) == 0;
+}
+
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<unsigned*>(p) = bf16_pair(v0, v1);
 }
 
 __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&v)[kRun]) {
@@ -213,20 +263,15 @@ __device__ __forceinline__ void halo_from_next(float (&e)[kRun + 6], float (&o)[
   for (int i = 0; i < 5; ++i) o[kRun + i] = __shfl_down_sync(kFull, o[i], 1);
 }
 
-// The warp segment starting at output s of one (b, c) row of length `len`:
-// writes the outputs in [lo, hi) (s <= lo < hi <= min(s + kSegLen, len)).
-// Called by all 32 lanes of a warp with the same arguments.
-template <typename T>
-__device__ __forceinline__ void snake_segment(const T* __restrict__ xr, T* __restrict__ outr,
-                                              int s, int lo, int hi, int len, float a, float ib,
-                                              const Taps& taps) {
-  const int lane = threadIdx.x & (kLanes - 1);
-  const int q0 = s + lane * kRun;  // this lane's first output
-  const int p0 = q0 - 3;           // and first phase position
-  float xe[kRun + 6];              // x[p0 - 3 + i]
-  stage_run<false>(xr, q0, len, lane, xe);
-
-  float ph_e[kRun + 6], ph_o[kRun + 5];  // E, O at p0 + j
+// The phases of one lane: from xe[i] = x[p0 - 3 + i] (i < kRun + 6, x
+// edge-replicated), E and O at the kRun positions p0 + j in ph_e[j] / ph_o[j],
+// the edge clamps applied against the row length `len`. w0 is the warp's
+// first phase position (lane 0's p0). Called by all 32 lanes; halo_from_next
+// then brings the phases right of them for down_fir.
+template <typename TapsT>
+__device__ __forceinline__ void snake_phases(const TapsT& taps, const float (&xe)[kRun + 6],
+                                             int p0, int w0, int len, float a, float ib,
+                                             float (&ph_e)[kRun + 6], float (&ph_o)[kRun + 5]) {
 #pragma unroll
   for (int j = 0; j < kRun; ++j) {
     float se, so;
@@ -238,7 +283,6 @@ __device__ __forceinline__ void snake_segment(const T* __restrict__ xr, T* __res
   // the clamps E[p] = O[p] = E[0] for p < 0 and = O[T-1] for p > T-1, from
   // the lane that holds position 0 or T-1 (this warp does whenever its
   // outputs reach them)
-  const int w0 = s - 3;  // the warp's first phase position
   if (w0 < 0) {
     float v = 0.0f;
 #pragma unroll
@@ -259,10 +303,12 @@ __device__ __forceinline__ void snake_segment(const T* __restrict__ xr, T* __res
       if (p0 + j > len - 1) ph_e[j] = ph_o[j] = tail;
     }
   }
-  halo_from_next(ph_e, ph_o);
+}
 
-  // out[q0 + i]: E[q0 + i - 2 + m] is ph_e[i + 1 + m], O[q0 + i - 3 + m] is ph_o[i + m]
-  float y[kRun];
+// y[i] = out[p0 + 3 + i]: E[q - 2 + m] is ph_e[i + 1 + m], O[q - 3 + m] is ph_o[i + m]
+template <typename TapsT>
+__device__ __forceinline__ void down_fir(const TapsT& taps, const float (&ph_e)[kRun + 6],
+                                         const float (&ph_o)[kRun + 5], float (&y)[kRun]) {
 #pragma unroll
   for (int i = 0; i < kRun; ++i) {
     float acc = taps.de[0] * ph_e[i + 1] + taps.dodd[0] * ph_o[i];
@@ -273,6 +319,24 @@ __device__ __forceinline__ void snake_segment(const T* __restrict__ xr, T* __res
     }
     y[i] = acc;
   }
+}
+
+// The warp segment starting at output s of one (b, c) row of length `len`:
+// writes the outputs in [lo, hi) (s <= lo < hi <= min(s + kSegLen, len)).
+// Called by all 32 lanes of a warp with the same arguments.
+template <typename T>
+__device__ __forceinline__ void snake_segment(const T* __restrict__ xr, T* __restrict__ outr,
+                                              int s, int lo, int hi, int len, float a, float ib,
+                                              const Taps& taps) {
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int q0 = s + lane * kRun;  // this lane's first output
+  float xe[kRun + 6];              // x[q0 - 6 + i]
+  stage_run<false>(xr, q0, len, lane, xe);
+  float ph_e[kRun + 6], ph_o[kRun + 5];  // E, O at q0 - 3 + j
+  snake_phases(taps, xe, q0 - 3, s - 3, len, a, ib, ph_e, ph_o);
+  halo_from_next(ph_e, ph_o);
+  float y[kRun];
+  down_fir(taps, ph_e, ph_o, y);
   if (lane < kLanes - 1) store_run(outr, q0, lo, hi, y);
 }
 

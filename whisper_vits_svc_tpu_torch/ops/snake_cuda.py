@@ -29,10 +29,10 @@ and beta (as the JAX custom VJP does) and runs the backward kernel; without
 one (e.g. under torch.inference_mode) it launches the forward alone.
 `variant` chooses the forward kernel: "direct" (the plan above), "strips"
 (narrow, long shapes cut into segments that fill the card once; bitwise
-equal to "direct") or "mma" (the phase FIRs as 3xTF32 products on the
-tensor cores). The two alternatives are forward only, as in the JAX
-package. `launches`, `launches_bwd`, `launches_strips` and `launches_mma`
-count kernel launches.
+equal to "direct") or "mma" (the direct kernel's plan and phases, the down
+FIRs as 3xTF32 products on the tensor cores). The two alternatives are
+forward only, as in the JAX package. `launches`, `launches_bwd`,
+`launches_strips` and `launches_mma` count kernel launches.
 """
 
 from __future__ import annotations
@@ -161,7 +161,7 @@ def _library_strips() -> ctypes.CDLL:
 @lru_cache(maxsize=None)
 def _library_mma() -> ctypes.CDLL:
     return load_library(SOURCE_MMA, "snake_alias_mma_forward",
-                        [_PTR] * 5 + [_TAPS] + [_INT] * 4 + [_PTR],
+                        [_PTR] * 5 + [_TAPS] + [_INT] * 7 + [_PTR],
                         "snake_alias_mma_error_string")
 
 
@@ -355,42 +355,46 @@ def tf32_split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 @lru_cache(maxsize=None)
-def fir_matrices() -> tuple[np.ndarray, np.ndarray]:
-    """The banded FIR matrices of the mma kernel, from the 24 taps.
-    B_up [24, 32]: a window of 16 phase positions from P reads x[P - 3 + i],
-    i < 24; columns 0..15 give se[P + j], 16..31 so[P + j]. B_dn [48, 16]: a
-    window of 16 outputs from q reads E[q - 2 + i] (rows 0..23) and
-    O[q - 3 + i] (rows 24..47)."""
-    ae, ao, _, _, de, do_, _, _ = _polyphase_taps(12, 12)
+def down_fir_matrix() -> np.ndarray:
+    """The banded down-FIR matrix of the mma kernel, from the 12 down taps.
+    B_dn [48, 16]: a row of 16 outputs from q reads E[q - 3 + kk] (rows
+    kk < 24, B[kk][j] = de[kk - j - 1]) and O[q - 3 + kk] (rows 24 + kk,
+    B[24 + kk][j] = do[kk - j])."""
+    _, _, _, _, de, do_, _, _ = _polyphase_taps(12, 12)
     _taps()  # asserts the geometry the offsets above assume
-    b_up = np.zeros((24, 32), np.float32)
     b_dn = np.zeros((48, 16), np.float32)
     for j in range(16):
         for m in range(6):
-            b_up[j + m, j] = ae[m]
-            b_up[j + m + 1, 16 + j] = ao[m]
-            b_dn[j + m, j] = de[m]
+            b_dn[j + 1 + m, j] = de[m]
             b_dn[24 + j + m, j] = do_[m]
-    return b_up, b_dn
+    return b_dn
 
 
 @lru_cache(maxsize=None)
 def _fir_device(device: torch.device) -> torch.Tensor:
-    """[B_up hi, B_up lo, B_dn hi, B_dn lo] flattened, on `device`."""
-    parts = []
-    for m in fir_matrices():
-        parts += [p.flatten() for p in tf32_split(torch.from_numpy(m))]
-    return torch.cat(parts).to(device)
+    """[B_dn hi, B_dn lo] flattened, on `device`."""
+    hi, lo = tf32_split(torch.from_numpy(down_fir_matrix()))
+    return torch.cat([hi.flatten(), lo.flatten()]).to(device)
+
+
+# blocks of the mma kernel per SM (its __launch_bounds__; tc_probe.py found
+# 2 or 4, and larger grids, slower): its warps walk their segments at a
+# stride of the grid's warps, each loading the next run while computing
+MMA_BLOCKS_PER_SM = 3
 
 
 def snake_alias_mma_cuda(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """Launch the tensor-core kernel on x [B, C, T] (any shape
-    `snake_alias_cuda` takes). float32 accuracy through 3xTF32 products.
-    Launches on the current stream; does not synchronize."""
+    `snake_alias_cuda` takes): the direct kernel's plan and phases, the down
+    FIR as 3xTF32 products (float32 accuracy). Launches on the current
+    stream; does not synchronize."""
     global launches_mma
     _check_input("snake_alias_mma_cuda", x, alpha, beta)
+    plan = snake_plan(*x.shape, x.element_size())
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     out = _launch_forward("snake_alias_mma", _library_mma, x, alpha, beta,
-                          before_taps=(_fir_device(x.device).data_ptr(),))
+                          before_taps=(_fir_device(x.device).data_ptr(),),
+                          after_shape=(plan.n_seg, SEG_LEN, MMA_BLOCKS_PER_SM * sms))
     launches_mma += 1
     return out
 
