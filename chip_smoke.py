@@ -24,7 +24,8 @@ Phases (any failure exits non-zero without the final line):
    across two calls; CUDA-event times as in phase 3 (the earlier kernel's
    beside them);
    the forward kernel against its plain version at the same five training
-   shapes, as in phase 3;
+   shapes, and at the five stage shapes of one validation utterance (batch
+   1, padded to 400 frames), as in phase 3;
 4b. the corners of the kernels' work plan, forward and backward, float32
    and bfloat16, untimed: packed and misaligned rows (T = 1, T < 12,
    T = 32 * 8 +- 1, odd T with B * C no multiple of a block's 8 warps, the
@@ -81,6 +82,27 @@ Phases (any failure exits non-zero without the final line):
    one against the CPU on the 200-frame request; prints wall ms, the
    realtime factor and device ms per chunk beside the default's.
 
+11. training loop: a synthetic dataset (40 utterances of 160-400 frames,
+   about 80 MB: int16 wavs, specs, F0, PPG, vec, speaker vectors; 2 of
+   them the validation set) in a temporary directory, and the loop's entry
+   point `train` at full base width (batch 16, accum_step 2, info, eval
+   and save intervals 1): one epoch (validation, 3 steps, the third in
+   train's profiler window, a checkpoint),
+   a resume from that checkpoint for 18 more steps (6 epochs, each with its
+   validation and checkpoint, the newest 2 kept), and a NaN-poisoned
+   second batch with auto-resume off; checks the step counter, the epoch,
+   finite metrics, 91 forward and 91 backward snake launches per loop step
+   and 91 forward per validation utterance, one validation utterance
+   through the snake kernel against the plain version (same weights and
+   generator seed, within 5e-5), the resumed run's checkpoint
+   restored on the card against its states to the bit (parameters, AdamW
+   moments, acc, mini_step) and TrainDivergence with no checkpoint after
+   it; prints wall ms per loop step (median and range of the steady steps)
+   beside the bare step's of the same call, the writer's
+   steps_per_s and audio_seconds_per_s, the prefetch queue wait, checkpoint
+   size and save/load ms, validation ms per utterance, the profiled step's
+   device busy share and kernels by kind, peak memory and the loader route.
+
 Then prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -90,8 +112,11 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -99,12 +124,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from whisper_vits_svc_tpu_torch.data import native_loader
+from whisper_vits_svc_tpu_torch.data.dataset import (
+    MAX_SEGMENTS, BucketBatcher, SvcDataset, boundaries_for,
+)
 from whisper_vits_svc_tpu_torch.infer import pipeline
 from whisper_vits_svc_tpu_torch.infer.retrieval import DummyRetrieval
 from whisper_vits_svc_tpu_torch.models.synthesizer import slice_segments
 from whisper_vits_svc_tpu_torch.nn.snake import snake_alias_fused_cm
 from whisper_vits_svc_tpu_torch.ops import amp_cuda, snake_cuda
+from whisper_vits_svc_tpu_torch.train import checkpoint as tckpt
+from whisper_vits_svc_tpu_torch.train import loop as tloop
 from whisper_vits_svc_tpu_torch.train import step as tstep
+from whisper_vits_svc_tpu_torch.utils.audio_io import save_wav
 from whisper_vits_svc_tpu_torch.utils.config import BASE_MODEL_CONFIG, config_from_dict
 from whisper_vits_svc_tpu_torch.utils.device import resolve_device
 
@@ -181,6 +213,15 @@ AMP_ODD_CASES = ((1, 10, 1280, 3, 1), (2, 16, 1024, 7, 3), (1, 12, 2560, 11, 5),
 # the fused iteration's large-argument and misaligned cases: a C = 20 and a
 # C = 10 shape of the chunk's kinds, and the widest K (C = 32, k = 11)
 AMP_CORNER_CASES = ((1, 20, 4000, 11, 5), (1, 10, 8000, 3, 1), (2, 32, 1000, 11, 5))
+# the [train-loop] dataset: utterances in the (6, 12] and (12, 16] segment
+# buckets, 160-300 and 301-400 frames at base width: 1 + 2 batches of 16, an
+# odd count, so that G's checkpoint holds a half-full accumulator
+LOOP_UTTERANCES = (16, 24)
+LOOP_VAL_UTTERANCES = 2
+# 6 more epochs of 3 batches: 12 steady loop steps; 21 steps in all leave G
+# half way through an accumulation, so the checkpoint carries a full `acc`
+LOOP_RESUME_STEPS = 18
+PROFILED_LOOP_STEP = 3  # train(profile_dir=..., profile_steps=1) traces step 3
 STRIPS_ODD_SHAPES = ((2, 10, 5120), (2, 20, 6400), (2, 6, 8192), (2, 10, 3200))
 # fused iteration vs plain in f32, as the JAX package holds its kernel
 # (tests/test_snake_fused.py:242)
@@ -831,8 +872,7 @@ def profile(fn) -> dict:
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)):
             continue
-        kind = next((k for k, keys in KERNEL_KINDS if any(key in e.name for key in keys)),
-                    "other")
+        kind = kernel_kind(e.name)
         kinds[kind] += e.time_range.elapsed_us() / 1e3
         counts[kind] += 1
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15,
@@ -1027,6 +1067,380 @@ def train_card_vs_cpu(hp, g_model, d_model) -> dict:
                 term_rel=term_rel, vjp_rel=vjp_rel)
 
 
+def write_dataset(hp, root: Path, seed: int) -> tuple[str, str, int]:
+    """A synthetic data_svc cache in the reference's layout, drawn from
+    `seed`: per utterance a 32 kHz int16 wav (a sine at its F0 plus noise),
+    a [frames, bins] spec .npy, frames + 1 F0 values, the PPG and vec at the
+    320-hop rate (half the frames, plus 2) and a speaker vector; LOOP_UTTERANCES
+    utterances per bucket. Returns (train filelist, validation filelist of
+    the first LOOP_VAL_UTTERANCES, bytes written)."""
+    rng = np.random.default_rng(seed)
+    hop, sr = hp.data.hop_length, hp.data.sampling_rate
+    seg = hp.data.segment_size // hop
+    lengths = np.concatenate([rng.integers(6 * seg + 10, 12 * seg + 1, LOOP_UTTERANCES[0]),
+                              rng.integers(12 * seg + 1, 16 * seg + 1, LOOP_UTTERANCES[1])])
+    root.mkdir(parents=True)
+    rows = []
+    for i, frames in enumerate(rng.permutation(lengths)):
+        base = root / f"utt{i:03d}"
+        f0 = rng.uniform(110.0, 440.0) * (1 + 0.02 * np.sin(np.arange(frames + 1) / 7.0))
+        phase = 2 * np.pi * np.cumsum(np.repeat(f0[:frames], hop)) / sr
+        save_wav(f"{base}.wav", 0.3 * np.sin(phase) + 0.01 * rng.standard_normal(phase.size), sr)
+        np.save(f"{base}.spec.npy", np.abs(rng.standard_normal(
+            (frames, hp.data.filter_length // 2 + 1))).astype(np.float32))
+        np.save(f"{base}.pit.npy", f0.astype(np.float32))
+        half = frames // 2 + 2
+        np.save(f"{base}.vec.npy", rng.standard_normal((half, hp.vits.vec_dim)).astype(np.float32))
+        np.save(f"{base}.ppg.npy", rng.standard_normal((half, hp.vits.ppg_dim)).astype(np.float32))
+        np.save(f"{base}.spk.npy", rng.standard_normal(hp.vits.spk_dim).astype(np.float32))
+        rows.append("|".join(f"{base}.{ext}" for ext in
+                             ("wav", "spec.npy", "pit.npy", "vec.npy", "ppg.npy", "spk.npy")))
+    train, valid = root / "train.txt", root / "valid.txt"
+    train.write_text("\n".join(rows))
+    valid.write_text("\n".join(rows[:LOOP_VAL_UTTERANCES]))
+    return str(train), str(valid), sum(f.stat().st_size for f in root.iterdir())
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def loop_probes(device, poison_at: int | None = None):
+    """Wrap the loop's prefetch iterator (the time each step waits for its
+    batch; NaN into the ppg of the poison_at-th batch), its checkpoint writes
+    and its validations (time, utterances, and the snake launches inside).
+    Yields the record."""
+    rec = dict(wait_s=[], save_s=[], validate_s=[], validate_utts=0, validate_fwd=0,
+               validate_bwd=0, batches=0)
+    orig = dict(prefetch=tloop.prefetch, save=tckpt.save, validate=tloop.validate)
+
+    def prefetch(iterable, depth=2):
+        it = orig["prefetch"](iterable, depth)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                rec["wait_s"].append(time.perf_counter() - t0)
+                rec["batches"] += 1
+                if rec["batches"] == poison_at:
+                    batch = dict(batch, ppg=np.full_like(batch["ppg"], np.nan))
+                yield batch
+        finally:
+            it.close()  # the producer thread ends with the consumer
+
+    def save(*args, **kwargs):
+        sync(device)
+        t0 = time.perf_counter()
+        orig["save"](*args, **kwargs)
+        rec["save_s"].append(time.perf_counter() - t0)
+
+    def validate(hp, g_model, val_ds, writer, step):
+        sync(device)
+        fwd, bwd, t0 = snake_cuda.launches, snake_cuda.launches_bwd, time.perf_counter()
+        mel = orig["validate"](hp, g_model, val_ds, writer, step)
+        sync(device)
+        rec["validate_s"].append(time.perf_counter() - t0)
+        rec["validate_utts"] += len(val_ds)
+        rec["validate_fwd"] += snake_cuda.launches - fwd
+        rec["validate_bwd"] += snake_cuda.launches_bwd - bwd
+        return mel
+
+    tloop.prefetch, tckpt.save, tloop.validate = prefetch, save, validate
+    try:
+        yield rec
+    finally:
+        tloop.prefetch, tckpt.save, tloop.validate = (orig["prefetch"], orig["save"],
+                                                      orig["validate"])
+
+
+@contextlib.contextmanager
+def plain_snake():
+    """The plain PyTorch version in place of the snake kernels, on any device."""
+    orig = snake_cuda.snake_alias
+    snake_cuda.snake_alias = lambda x, alpha, beta, variant="direct": snake_alias_fused_cm(
+        x, alpha, beta)
+    try:
+        yield
+    finally:
+        snake_cuda.snake_alias = orig
+
+
+def validate_vs_plain(hp, g_model, valid_fl: str) -> dict:
+    """Validation's first utterance as `validate` feeds it (padded to the
+    dataset's longest) through SynthesizerTrn.infer on the card, with the
+    snake kernel and with the plain version in its place: same weights, same
+    generator seed. Returns the waveforms' max abs difference and the snake
+    launches of each run."""
+    ds = SvcDataset(valid_fl, hp.data)
+    ds.items = ds.items[:1]
+    outs, launches = [], []
+    infer = g_model.infer
+
+    def capture(*args, **kwargs):
+        outs.append(infer(*args, **kwargs))
+        return outs[-1]
+
+    g_model.infer = capture
+    try:
+        for plain in (False, True):
+            before = snake_cuda.launches
+            with plain_snake() if plain else contextlib.nullcontext():
+                tloop.validate(hp, g_model, ds, None, 0)
+            launches.append(snake_cuda.launches - before)
+    finally:
+        del g_model.infer
+    return dict(err=(outs[0] - outs[1]).abs().max().item(), launches=launches,
+                samples=outs[0].shape[1])
+
+
+def state_mismatches(a, b) -> list[str]:
+    """What differs between two TrainStates: parameters, AdamW state (step,
+    moments), learning rate, accumulator, mini_step; bitwise."""
+    bad = []
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        if not torch.equal(p, q):
+            bad.append(name)
+        sa, sb = a.optimizer.state.get(p, {}), b.optimizer.state.get(q, {})
+        if sorted(sa) != sorted(sb) or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            bad.append(f"{name} (AdamW state)")
+    if a.optimizer.param_groups[0]["lr"] != b.optimizer.param_groups[0]["lr"]:
+        bad.append("lr")
+    if a.mini_step != b.mini_step:
+        bad.append("mini_step")
+    if a.acc is not None and not all(torch.equal(x, y) for x, y in zip(a.acc, b.acc)):
+        bad.append("acc")
+    return bad
+
+
+def kernel_kind(name: str) -> str:
+    return next((k for k, keys in KERNEL_KINDS if any(key in name for key in keys)), "other")
+
+
+def trace_kinds(path: Path) -> dict:
+    """Device ms and kernel count by kind, device busy ms (kernels, copies,
+    memsets) and the window's span (first event to last end, host and
+    device), from a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kinds = {kind: 0.0 for kind, _ in KERNEL_KINDS} | {"other": 0.0}
+    counts = dict.fromkeys(kinds, 0)
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            kind = kernel_kind(e["name"])
+            kinds[kind] += e["dur"] / 1e3
+            counts[kind] += 1
+    span_us = (max(e["ts"] + e.get("dur", 0) for e in events) - min(e["ts"] for e in events)
+               if events else 0.0)
+    return dict(busy_ms=sum(kinds.values()), span_ms=span_us / 1e3, kinds=kinds, counts=counts)
+
+
+def loop_records(hp, name: str) -> list[dict]:
+    with open(os.path.join(hp.log.log_dir, name, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_loop_phase(base_hp, device="cuda", n_snakes: int = 91) -> dict:
+    """The training loop through its entry point `train` on a synthetic
+    dataset written to a temporary directory: one epoch (validation of
+    LOOP_VAL_UTTERANCES utterances, the steps, a checkpoint), a resume from
+    that checkpoint for LOOP_RESUME_STEPS more steps (a validation and a
+    checkpoint every epoch), and a NaN-poisoned second batch with auto-resume
+    off. Checks the counters, finite metrics, n_snakes forward and backward
+    snake launches per step and forward per validation utterance, a
+    validation utterance through the kernel against the plain version, the
+    resumed run's checkpoint against its states to the bit, and
+    TrainDivergence with no checkpoint after it."""
+    root = Path(tempfile.mkdtemp(prefix="svc_train_loop_"))
+    phase_t0 = time.perf_counter()
+    try:
+        train_fl, valid_fl, data_bytes = write_dataset(base_hp, root / "data", seed=5)
+        write_s = time.perf_counter() - phase_t0
+        hp = config_from_dict(base_hp)
+        hp.data.update(training_files=train_fl, validation_files=valid_fl)
+        hp["log"] = config_from_dict(dict(
+            info_interval=1, eval_interval=1, save_interval=1, num_audio=LOOP_VAL_UTTERANCES,
+            pth_dir=str(root / "chkpt"), log_dir=str(root / "logs"), keep_ckpts=2))
+        dataset = SvcDataset(train_fl, hp.data)
+        n_batches = BucketBatcher(dataset, hp.train.batch_size, boundaries_for(hp.data),
+                                  seed=hp.train.seed).batches_per_epoch()
+        check(len(dataset) == sum(LOOP_UTTERANCES) and n_batches == 3,
+              f"{len(dataset)} utterances in {n_batches} batches, expected "
+              f"{sum(LOOP_UTTERANCES)} in 3")
+        check(LOOP_RESUME_STEPS % n_batches == 0,
+              f"{LOOP_RESUME_STEPS} resume steps are not whole epochs of {n_batches}")
+        # the resume repeats the checkpoint's epoch 1, as the reference does
+        resume_epochs = LOOP_RESUME_STEPS // n_batches
+        path = os.path.join(hp.log.pth_dir, "loop", "loop_0001.pth")
+
+        runs = {}
+        for run in ("epoch", "resume"):
+            resume = run == "resume"
+            epochs = resume_epochs if resume else 1
+            reset_counts()
+            if torch.device(device).type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            with loop_probes(device) as rec:
+                t0 = time.perf_counter()
+                g, d, step = tloop.train(
+                    hp, "loop", chkpt_path=path if resume else None, max_epochs=epochs,
+                    max_steps=n_batches + LOOP_RESUME_STEPS if resume else None,
+                    profile_dir=None if resume else str(root / "profile"), profile_steps=1,
+                    device=device)
+                sync(device)
+                rec["wall_s"] = time.perf_counter() - t0
+            counts = read_counts()
+            steps = step - (n_batches if resume else 0)
+            check(step == (n_batches + LOOP_RESUME_STEPS if resume else n_batches)
+                  and steps == rec["batches"], f"{run}: step counter {step} after "
+                                               f"{rec['batches']} batches")
+            path = os.path.join(hp.log.pth_dir, "loop", f"loop_{epochs:04d}.pth")
+            payload = tckpt.load(path)
+            check((payload["step"], payload["epoch"]) == (step, epochs),
+                  f"{run}: checkpoint at step {payload['step']}, epoch {payload['epoch']}")
+            check(len(rec["save_s"]) == epochs
+                  and len(os.listdir(os.path.join(hp.log.pth_dir, "loop"))) == min(epochs, 2),
+                  f"{run}: {len(rec['save_s'])} saves in {epochs} epochs, checkpoints kept "
+                  f"{sorted(os.listdir(os.path.join(hp.log.pth_dir, 'loop')))}")
+            train_fwd = counts["direct"] - rec["validate_fwd"]
+            check(rec["validate_utts"] == LOOP_VAL_UTTERANCES * epochs
+                  and rec["validate_fwd"] == n_snakes * LOOP_VAL_UTTERANCES * epochs
+                  and rec["validate_bwd"] == 0,
+                  f"{run}: validation of {rec['validate_utts']} utterances launched "
+                  f"{rec['validate_fwd']} forward / {rec['validate_bwd']} backward snakes")
+            check(train_fwd == n_snakes * steps and counts["bwd"] == n_snakes * steps,
+                  f"{run}: {train_fwd} forward / {counts['bwd']} backward snake launches "
+                  f"in {steps} loop steps, expected {n_snakes} each per step")
+            check(counts["strips"] == counts["mma"] == counts["amp"] == 0,
+                  f"{run}: the loop launched an alternative kernel: {counts}")
+            rec.update(g=g, d=d, steps=steps, counts=counts, train_fwd=train_fwd,
+                       peak_bytes=(torch.cuda.max_memory_allocated()
+                                   if torch.device(device).type == "cuda" else 0))
+            runs[run] = rec
+        records = loop_records(hp, "loop")
+        trace = trace_kinds(root / "profile" / "train_steps.json")
+        check(trace["counts"]["snake_fwd"] == n_snakes and trace["counts"]["snake_bwd"] == n_snakes,
+              f"the loop's profile window (step 3): {trace['counts']['snake_fwd']} forward and "
+              f"{trace['counts']['snake_bwd']} backward snake kernels, expected {n_snakes} each")
+        train_recs = [r for r in records if "loss_g" in r]
+        val_recs = [r for r in records if "validation_mel_loss" in r]
+        check([r["step"] for r in train_recs] == list(range(1, n_batches + LOOP_RESUME_STEPS + 1))
+              and [r["step"] for r in val_recs]
+              == [0] + list(range(n_batches, n_batches + LOOP_RESUME_STEPS, n_batches)),
+              f"metrics.jsonl steps {[r['step'] for r in records]}")
+        check(all(np.isfinite(v) for r in records for v in r.values()),
+              "non-finite values in metrics.jsonl")
+
+        # the resumed run's checkpoint restored into fresh states on the card
+        fresh_g, fresh_d = tstep.init_train_states(hp, seed=1, device=device)
+        sync(device)
+        t0 = time.perf_counter()
+        tckpt.restore_states(fresh_g, fresh_d, tckpt.load(path))
+        sync(device)
+        load_s = time.perf_counter() - t0
+        res = runs["resume"]
+        bad = state_mismatches(res["g"], fresh_g) + state_mismatches(res["d"], fresh_d)
+        check(not bad, f"checkpoint round trip on the card differs at {bad[:5]}")
+        check(fresh_g.mini_step == 1 and any(bool(a.any()) for a in fresh_g.acc),
+              f"G's checkpoint holds mini_step {fresh_g.mini_step} and an empty accumulator")
+
+        # B1 at validation's shapes, inside the path: the kernel against the
+        # plain version on one utterance, the resumed run's weights
+        val_cmp = validate_vs_plain(hp, res["g"].model, valid_fl)
+        check(val_cmp["launches"] == [n_snakes, 0],
+              f"validation kernel / plain runs launched {val_cmp['launches']} snakes")
+        check(val_cmp["err"] <= CARD_VS_CPU_ATOL,
+              f"validation utterance, snake kernel against the plain version: max abs err "
+              f"{val_cmp['err']} (tolerance {CARD_VS_CPU_ATOL})")
+        del fresh_g, fresh_d, res["g"], res["d"], runs["epoch"]["g"], runs["epoch"]["d"]
+
+        # the NaN guard: a poisoned second batch, auto-resume off
+        nan_hp = config_from_dict(hp)
+        nan_hp.log["eval_interval"] = 10**9
+        check(not nan_hp.train.get("nan_autoresume", False), "auto-resume is on in the config")
+        with loop_probes(device, poison_at=2) as rec:
+            try:
+                tloop.train(nan_hp, "nan", max_epochs=1, device=device)
+                div = None
+            except tloop.TrainDivergence as e:
+                div = e
+        check(div is not None and (div.step, div.last_healthy_step) == (2, 1),
+              f"NaN batch: {div!r}")
+        left = os.listdir(os.path.join(hp.log.pth_dir, "nan"))
+        check(left == [], f"checkpoints written past the divergence: {left}")
+        return dict(runs=runs, train_recs=train_recs, val_recs=val_recs, n_batches=n_batches,
+                    trace=trace, data_bytes=data_bytes, write_s=write_s, val_cmp=val_cmp,
+                    ckpt_bytes=os.path.getsize(path),
+                    load_s=load_s, route=native_loader.route(), divergence=str(div),
+                    phase_s=time.perf_counter() - phase_t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def spread(xs) -> str:
+    return f"median {np.median(xs):.2f} ms ({min(xs):.2f}-{max(xs):.2f}, n {len(xs)})"
+
+
+def report_train_loop(hp, lp: dict, bare_step_ms: list, smi: str) -> None:
+    """The [train-loop] lines, each with the card's name and power limit."""
+    ep, rs = lp["runs"]["epoch"], lp["runs"]["resume"]
+    step_ms = [1e3 / r["steps_per_s"] for r in lp["train_recs"]]
+    # each epoch's first step waits for the first batch of a new prefetch
+    # thread; step 3 also writes the profiler's trace
+    steady = [ms for r, ms in zip(lp["train_recs"], step_ms)
+              if (r["step"] - 1) % lp["n_batches"] and r["step"] != PROFILED_LOOP_STEP]
+    waits = [1e3 * w for w in ep["wait_s"] + rs["wait_s"]]
+    val_ms = [1e3 * t / LOOP_VAL_UTTERANCES for t in ep["validate_s"] + rs["validate_s"]]
+
+    def fmt(xs):
+        return [round(x, 2) for x in xs]
+
+    print(f"[train-loop] dataset: {sum(LOOP_UTTERANCES)} utterances, "
+          f"{lp['data_bytes'] / 1e6:.1f} MB written in {lp['write_s']:.2f} s; loader route "
+          f"{lp['route']}; {lp['n_batches']} batches of {hp.train.batch_size} an epoch | {smi}",
+          flush=True)
+    print(f"[train-loop] wall ms per loop step (loader, prefetch, logging inside; the "
+          f"writer's 1 / steps_per_s), steps 1-{len(step_ms)}: {fmt(step_ms)}; without each "
+          f"epoch's first step and the profiled step: {spread(steady)}; [train]'s bare "
+          f"step in this call: {spread(bare_step_ms)} | {smi}", flush=True)
+    print(f"[train-loop] writer steps_per_s {fmt(r['steps_per_s'] for r in lp['train_recs'])}, "
+          f"audio_seconds_per_s {fmt(r['audio_seconds_per_s'] for r in lp['train_recs'])} "
+          f"| {smi}", flush=True)
+    print(f"[train-loop] prefetch queue wait ms per step {fmt(waits)}, mean "
+          f"{np.mean(waits):.2f} | {smi}", flush=True)
+    print(f"[train-loop] checkpoint {lp['ckpt_bytes'] / 1e6:.1f} MB, save ms "
+          f"{fmt(1e3 * t for t in ep['save_s'] + rs['save_s'])}, load + restore ms "
+          f"{1e3 * lp['load_s']:.2f} | {smi}", flush=True)
+    print(f"[train-loop] validation ms per utterance {fmt(val_ms)}; validation mel "
+          f"{fmt(r['validation_mel_loss'] for r in lp['val_recs'])} | {smi}", flush=True)
+    vc = lp["val_cmp"]
+    print(f"[train-loop] validation utterance ({vc['samples']} samples) through the snake "
+          f"kernel against the plain version: max abs err {vc['err']:.3e} (tolerance "
+          f"{CARD_VS_CPU_ATOL}); snake launches {vc['launches'][0]} / {vc['launches'][1]} | "
+          f"{smi}", flush=True)
+    tr = lp["trace"]
+    print(f"[train-loop] profiled loop step {PROFILED_LOOP_STEP} (train's profile_dir, "
+          f"torch.profiler on): window {tr['span_ms']:.2f} ms, device busy "
+          f"{tr['busy_ms']:.2f} ms ({100 * tr['busy_ms'] / tr['span_ms']:.1f}%); device ms by kind "
+          + json.dumps({k: round(v, 3) for k, v in tr["kinds"].items()})
+          + "; kernels by kind " + json.dumps(tr["counts"]) + f" | {smi}", flush=True)
+    print(f"[train-loop] peak device memory {ep['peak_bytes'] / 2**30:.2f} GiB (epoch run), "
+          f"{rs['peak_bytes'] / 2**30:.2f} GiB (resume run); run walls "
+          f"{ep['wall_s']:.2f} / {rs['wall_s']:.2f} s | {smi}", flush=True)
+    print(f"[train-loop] launches: epoch run {ep['steps']} steps, snake fwd {ep['train_fwd']} "
+          f"bwd {ep['counts']['bwd']}, validation fwd {ep['validate_fwd']} for "
+          f"{LOOP_VAL_UTTERANCES} utterances; resume run {rs['steps']} steps, fwd "
+          f"{rs['train_fwd']} bwd {rs['counts']['bwd']}, validation fwd {rs['validate_fwd']} "
+          f"for {rs['validate_utts']} utterances; "
+          f"the resumed run's checkpoint equals its states on the card to the bit "
+          f"(parameters, AdamW moments and steps, lr, acc, mini_step); NaN batch: "
+          f"{lp['divergence']}; the phase took {lp['phase_s']:.1f} s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1092,6 +1506,19 @@ def main() -> int:
     fwd_per_step, fwd_step_bound_by = per_call_sum(fwd_train_rows, train_stages)
     print(f"[kernel-train] forward per training step, f32, {n_train_calls} calls: "
           f"{json.dumps(fwd_per_step)}; backward {json.dumps(per_step)}", flush=True)
+    # the forward kernel at validation's shapes: one utterance padded to the
+    # dataset's longest
+    val_frames = MAX_SEGMENTS * seg_frames
+    val_stages = stage_shapes(hp, 1, val_frames)
+    val_rows = []
+    for i, (shape, _) in enumerate(val_stages):
+        for dtype in (torch.float32, torch.bfloat16):
+            val_rows.append(check_kernel(shape, dtype, seed=350 + i))
+    for r in val_rows:
+        print("[kernel-validate] " + json.dumps(r), flush=True)
+    fwd_per_val, fwd_val_bound_by = per_call_sum(val_rows, val_stages)
+    print(f"[kernel-validate] forward per validation utterance ({val_frames} frames), f32, "
+          f"{n_calls} calls: {json.dumps(fwd_per_val)}", flush=True)
 
     # the corners of the work plan, and large arguments, forward and backward
     corners = [(shape, False, False) for shape in PLAN_ODD_SHAPES + BWD_ODD_SHAPES]
@@ -1226,19 +1653,31 @@ def main() -> int:
     check(cmp["zero_rel"][0][0] <= TRAIN_GRAD_REL_L2,
           f"conv_k.bias gradients not near zero: {top(cmp['zero_rel'], 3)}")
 
+    # the training loop around the step: data, prefetch, checkpoints,
+    # validation, the NaN guard
+    lp = train_loop_phase(hp)
+    report_train_loop(hp, lp, tr["step_ms"], smi)
+    loop_run = lp["runs"]["epoch"]
+
     kernels = [{
         "name": "snake_alias", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows + fwd_train_rows
+        "max_abs_err": max(r["max_abs_err"] for r in rows + fwd_train_rows + val_rows
                            if r["dtype"] == "float32"),
         "ms": per_chunk["ms"], "plain_ms": per_chunk["plain_ms"],
         "bound_ms": per_chunk["bound_ms"], "bound_by": bound_by, "library_ms": None,
         "per": f"one {CHUNK_FRAMES}-frame chunk at base width, float32, {n_calls} calls",
-        "launches_by_path": {"svc_infer": launches, "train_step": train_fwd},
+        "launches_by_path": {"svc_infer": launches, "train_step": train_fwd,
+                             "train_loop": loop_run["train_fwd"],
+                             "validate": loop_run["validate_fwd"]},
         "train_step": fwd_per_step | {
             "bound_by": fwd_step_bound_by,
             "per": f"one training step at base width (batch {hp.train.batch_size}, "
                    f"{seg_frames}-frame segments), float32, {n_train_calls} calls"},
+        "validate": fwd_per_val | {
+            "bound_by": fwd_val_bound_by,
+            "per": f"one validation utterance at base width ({val_frames} frames), float32, "
+                   f"{n_calls} calls"},
     }, {
         "name": "snake_alias_bwd", "route": "cuda", "source": SOURCE_BWD,
         "replaces": REPLACES_BWD, "launches": train_bwd,
@@ -1247,7 +1686,9 @@ def main() -> int:
         "bound_ms": per_step["bound_ms"], "bound_by": bwd_bound_by, "library_ms": None,
         "per": f"one training step at base width (batch {hp.train.batch_size}, "
                f"{seg_frames}-frame segments), float32, {n_train_calls} calls",
-        "launches_by_path": {"svc_infer": infer_bwd, "train_step": train_bwd},
+        "launches_by_path": {"svc_infer": infer_bwd, "train_step": train_bwd,
+                             "train_loop": loop_run["counts"]["bwd"],
+                             "validate": loop_run["validate_bwd"]},
     }]
     chunk = f"one {CHUNK_FRAMES}-frame chunk at base width, float32"
     fused_run = alt_runs["fused"]
@@ -1263,7 +1704,8 @@ def main() -> int:
         "per": f"{chunk}, {alt['amp_calls']} calls (amp_fused_iter=True)",
         "launches_by_path": {"svc_infer": counts_default["amp"],
                              "svc_infer_fused": fused_run["counts"]["amp"],
-                             "train_step": counts["amp"]},
+                             "train_step": counts["amp"],
+                             "train_loop": loop_run["counts"]["amp"]},
     })
     for variant, source, replaces in (("strips", SOURCE_STRIPS, REPLACES_STRIPS),
                                       ("mma", SOURCE_MMA, REPLACES_MMA)):
@@ -1280,7 +1722,8 @@ def main() -> int:
                    f"(snake_variant=\"{variant}\")",
             "launches_by_path": {"svc_infer": counts_default[variant],
                                  f"svc_infer_{variant}": run["counts"][variant],
-                                 "train_step": counts[variant]},
+                                 "train_step": counts[variant],
+                                 "train_loop": loop_run["counts"][variant]},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

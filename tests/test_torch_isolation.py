@@ -1,5 +1,7 @@
-"""The port stands alone: it imports no JAX, flax or JAX-package module, and
-its entry points refuse to run without CUDA unless asked for the CPU."""
+"""The port stands alone: it imports no JAX, flax or JAX-package module (nor,
+at import time, yaml, msgpack, matplotlib or tensorboard, which the card's
+machine lacks), and its entry points refuse to run without CUDA unless asked
+for the CPU."""
 
 import os
 import subprocess
@@ -28,7 +30,9 @@ for node in tree.body:
         exec(compile(ast.Module([node], []), "chip_smoke.py", "exec"))
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax", "whisper_vits_svc_tpu",
-                                    "yaml", "msgpack"))
+                                    "yaml", "msgpack", "matplotlib", "tensorboard",
+                                    "tensorboardX")
+             or n == "torch.utils.tensorboard")
 print("BAD", bad)
 """
 
@@ -107,6 +111,37 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             pipeline.svc_infer(*args, device=device)
     assert pipeline.svc_infer(*args, device="cpu").shape == (40,)
+
+
+def test_trainer_cli_needs_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
+    """The trainer CLI refuses to start without CUDA; with --device cpu it
+    checks the hop, seeds numpy and hands its flags to train()."""
+    import yaml
+
+    from whisper_vits_svc_tpu_torch.cli import trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hp = {k: dict(v) for k, v in _tiny_hp().items()}
+    hp["train"] = {"seed": 77}
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text(yaml.safe_dump(hp))
+    calls = []
+    monkeypatch.setattr(trainer, "train", lambda *a, **k: calls.append((a, k)))
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            trainer.main(["-c", str(cfg), "-n", "t", *extra])
+    assert calls == []
+    with pytest.raises(AssertionError, match="hop_length must be 320"):
+        trainer.main(["-c", str(cfg), "-n", "t", "--device", "cpu"])
+    hp["data"]["hop_length"] = 320
+    cfg.write_text(yaml.safe_dump(hp))
+    trainer.main(["-c", str(cfg), "-n", "t", "-p", "x.pth", "--max-steps", "4",
+                  "--device", "cpu"])
+    ((args, kwargs),) = calls
+    assert args[1:] == ("t", "x.pth", None, 4)
+    assert kwargs["device"] == torch.device("cpu") and kwargs["profile_dir"] is None
+    assert args[0].train.seed == 77 and args[0].raw == cfg.read_text()
+    assert np.random.get_state()[1][0] == np.random.RandomState(77).get_state()[1][0]
 
 
 def test_cli_requires_precomputed_features(tmp_path):

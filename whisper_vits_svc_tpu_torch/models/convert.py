@@ -8,8 +8,10 @@ tree (nested dict of arrays) back to those names, reading every depth from
 the tree. `from_jax_trn_params` and `from_jax_disc_params` are the inverses
 of `convert.synthesizer_trn` and `convert.discriminator`: a JAX
 SynthesizerTrn tree and a JAX Discriminator tree to the training models'
-state_dicts. `load_jax_ckpt` reads a JAX `.ckpt` (flax msgpack) with plain
-`msgpack`, imported lazily.
+state_dicts. `from_jax_opt_state` carries a JAX optimizer state (optax
+AdamW moments, the MultiSteps accumulator) into a torch AdamW state_dict.
+`load_jax_ckpt` reads a JAX `.ckpt` (flax msgpack) with plain `msgpack`,
+imported lazily.
 
 Layouts: JAX Conv1d (K, I, O) -> torch (O, I, K); JAX ConvTranspose1d
 (K, I, O) -> torch (I, O, K); JAX Conv2d (Kh, Kw, I, O) -> torch
@@ -194,6 +196,41 @@ def from_jax_disc_params(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
         _wn_conv1d(sd, f"MSD.convs.{j}", msd[f"convs_{j}"])
     _wn_conv1d(sd, "MSD.conv_post", msd["conv_post"])
     return sd
+
+
+def from_jax_opt_state(tree: Mapping, params_to_sd) -> dict:
+    """A JAX optimizer state (`serialization.to_state_dict` of the opt_state
+    in a `.ckpt`) -> the port's optimizer entry: a torch AdamW
+    `state_dict()` ({"state": {i: {step, exp_avg, exp_avg_sq}},
+    "param_groups": [{"lr", "params"}]}) with "param_names", the name of
+    each index, plus, for the generator's MultiSteps, "acc" (the running mean
+    of the accumulated gradients, by name) and "mini_step".
+
+    G's state is optax.MultiSteps(inject_hyperparams(adamw)): {mini_step,
+    gradient_step, inner_opt_state, acc_grads, skip_state}; D's is
+    inject_hyperparams(adamw): {count, hyperparams, hyperparams_states,
+    inner_state}, whose inner_state "0" is scale_by_adam's {count, mu, nu}.
+    `params_to_sd` (`from_jax_trn_params` or `from_jax_disc_params`) maps the
+    moment and accumulator trees as it maps the parameters: every leaf
+    mapping is a transpose or a reshape, so the carry is exact, and indices
+    are matched by parameter name."""
+    multi = "acc_grads" in tree
+    inner = tree["inner_opt_state"] if multi else tree
+    adam = inner["inner_state"]["0"]
+    mu, nu = params_to_sd(adam["mu"]), params_to_sd(adam["nu"])
+    names = list(mu)
+    step = torch.tensor(float(np.asarray(adam["count"])))
+    out = {
+        "state": {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                  for i, n in enumerate(names)},
+        "param_groups": [{"lr": float(np.asarray(inner["hyperparams"]["learning_rate"])),
+                          "params": list(range(len(names)))}],
+        "param_names": names,
+    }
+    if multi:
+        out["acc"] = params_to_sd(tree["acc_grads"])
+        out["mini_step"] = int(np.asarray(tree["mini_step"]))
+    return out
 
 
 def _ndarray_from_ext(code: int, data: bytes):

@@ -4,8 +4,9 @@ generator (reference vits/models.py:14-256, JAX models/synthesizer.py).
 `SynthesizerInfer` is the inference graph (no posterior). `SynthesizerTrn` is
 the training graph: data perturbation, prior and posterior samples, a random
 aligned segment slice into the generator, the flow both ways and the GRL
-speaker classifier. Every random draw comes from an explicit torch.Generator;
-`train=False, perturb=False, noise_scale=0, slice_ids=...` freezes them all.
+speaker classifier; its `infer` is validation's whole-utterance synthesis.
+Every random draw comes from an explicit torch.Generator; `train=False,
+perturb=False, noise_scale=0, slice_ids=...` freezes them all.
 
 Public layout: latents [B, T, C], masks [B, T, 1], audio [B, S, 1].
 """
@@ -226,6 +227,23 @@ class SynthesizerTrn(nn.Module):
         spk_preds = self.speaker_classifier(x)
         return TrainOutputs(audio, ids_slice, spec_mask, z_f, z_r, z_p, m_p, logs_p,
                             z_q, m_q, logs_q, logdet_f, logdet_r, spk_preds)
+
+    def infer(self, ppg: torch.Tensor, vec: torch.Tensor, pit: torch.Tensor,
+              spk: torch.Tensor, ppg_l: torch.Tensor, noise_scale: float = 1.0,
+              perturb: bool = True,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        """The training model's quick inference (models.py:202-208), used by
+        validation: a 1e-4 PPG jitter (perturb), the prior sample at
+        noise_scale, the flow in reverse, then the generator with train off
+        (deterministic excitation, no latent noise). Draws come from
+        `generator`. -> audio [B, T*hop, 1]."""
+        if perturb:
+            ppg = ppg + torch.randn(ppg.shape, generator=generator, device=ppg.device,
+                                    dtype=ppg.dtype) * 0.0001
+        z_p, _, _, ppg_mask, _ = self.enc_p(ppg, ppg_l, vec, f0_to_coarse(pit), noise_scale,
+                                            generator=generator)
+        z, _ = self.flow(z_p, ppg_mask, g=spk, reverse=True)
+        return self.dec(spk, z * ppg_mask, f0_frames=pit)
 
 
 class SynthesizerInfer(nn.Module):

@@ -7,6 +7,9 @@ win_length zero-padded centered to n_fft, as torch.stft does), so the numbers
 match the JAX package's. Framing is `Tensor.unfold`, whose autograd adjoint is
 the overlap-add.
 
+  * `linear_spectrogram`: the VITS linear spectrogram (reference
+    vits/spectrogram.py:41-76), as `mel_spectrogram` before the mel
+    projection, eps 1e-6; validation's spectrogram panels use it;
   * `mel_spectrogram`: TacotronSTFT (reference vits_extend/stft.py:76-110):
     reflect pre-pad (n_fft - hop)/2, center=False, hann, eps 1e-9 under the
     sqrt, log of the mel clamped at 1e-5;
@@ -92,6 +95,14 @@ def stft_magnitude(y: torch.Tensor, n_fft: int, hop: int, win_length: int, *,
 def _vits_prepad(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     pad = int((n_fft - hop) / 2)
     return _reflect_pad(y, pad, pad)
+
+
+def linear_spectrogram(y: torch.Tensor, n_fft: int, hop: int, win_length: int) -> torch.Tensor:
+    """VITS linear spectrogram (reference vits/spectrogram.py:41-76): reflect
+    pre-pad, center=False, hann, eps 1e-6 under the sqrt.
+    [B, T] -> [B, frames, n_fft//2+1]."""
+    return stft_magnitude(_vits_prepad(y, n_fft, hop), n_fft, hop, win_length,
+                          center=False, mag_eps=1e-6)
 
 
 def mel_spectrogram(y: torch.Tensor, n_fft: int, num_mels: int, sampling_rate: int, hop: int,

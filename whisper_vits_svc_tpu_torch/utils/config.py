@@ -28,10 +28,15 @@ class Config(dict):
 
 
 def load_config(path: str) -> Config:
+    """The YAML file as a Config; its text is kept under "raw" (stored in
+    checkpoints as hp_str, to warn when a resumed run's config differs)."""
     import yaml
 
     with open(path, "r") as f:
-        return Config._wrap(yaml.safe_load(f))
+        raw = f.read()
+    cfg = Config._wrap(yaml.safe_load(raw))
+    cfg["raw"] = raw
+    return cfg
 
 
 def config_from_dict(d: Mapping) -> Config:
@@ -39,7 +44,7 @@ def config_from_dict(d: Mapping) -> Config:
     return Config._wrap(d)
 
 
-# The train/data/vits/gen/mpd/mrd sections of configs/base.yaml, for callers
+# The train/data/vits/gen/mpd/mrd/log sections of configs/base.yaml, for callers
 # that must not depend on PyYAML (chip_smoke.py). tests/test_torch_pipeline.py
 # holds this copy equal to the YAML file.
 BASE_MODEL_CONFIG = {
@@ -102,5 +107,14 @@ BASE_MODEL_CONFIG = {
     "mrd": {
         "resolutions": [[1024, 120, 600], [2048, 240, 1200], [4096, 480, 2400], [512, 50, 240]],
         "lReLU_slope": 0.2,
+    },
+    "log": {
+        "info_interval": 100,
+        "eval_interval": 1,
+        "save_interval": 5,
+        "num_audio": 6,
+        "pth_dir": "chkpt",
+        "log_dir": "logs",
+        "keep_ckpts": 0,
     },
 }
