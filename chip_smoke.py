@@ -103,6 +103,26 @@ Phases (any failure exits non-zero without the final line):
    size and save/load ms, validation ms per utterance, the profiled step's
    device busy share and kernels by kind, peak memory and the loader route.
 
+12. audio in: seeded random extractor checkpoints at the published widths
+   in the reference layouts, written to a temporary directory (whisper
+   large-v2: dims and 32 encoder blocks of 1280 in float16, cut to 24 by
+   the loader; hubert-soft 12 x 768; CREPE "full"; the LSTM speaker encoder
+   3 x 768 -> 256), the singer's d-vector from the port's compute_embedding
+   on a synthetic voice, a 30.5 s synthetic song at 44.1 kHz (three whisper
+   windows and two HuBERT windows, each with a masked tail), and the port
+   CLI's `main` from the wave alone in a fresh directory; then retrieval
+   banks from the extractors' features of a 200 s synthetic corpus (the
+   port's build_index) and `main` again with --enable-retrieval. Checks
+   svc_out.wav (finite, not silent, 32 kHz, the chunk plan's length), 91
+   snake launches per chunk and none of another kernel, a waveform that
+   retrieval changed; each extractor on the card against the CPU at full
+   width (one 15 s whisper window, one 20 s HuBERT window, a 4 s clip for
+   CREPE and the speaker encoder; PPG and units 1e-3, CREPE probabilities
+   1e-4, d-vector 1e-5, the retrieval blend 1e-4) and the Viterbi path
+   decoded on the card and on the CPU from the card's probabilities, equal.
+   Prints ms by stage and the realtime factor of each request, the peak
+   device memory, and the device busy share of a profiled extraction.
+
 Then prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -124,18 +144,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scipy.io import wavfile
+
+from whisper_vits_svc_tpu_torch.cli import inference as cli_inference
 from whisper_vits_svc_tpu_torch.data import native_loader
 from whisper_vits_svc_tpu_torch.data.dataset import (
     MAX_SEGMENTS, BucketBatcher, SvcDataset, boundaries_for,
 )
 from whisper_vits_svc_tpu_torch.infer import pipeline
+from whisper_vits_svc_tpu_torch.infer import retrieval as retrieval_mod
 from whisper_vits_svc_tpu_torch.infer.retrieval import DummyRetrieval
+from whisper_vits_svc_tpu_torch.models import crepe as crepe_mod
+from whisper_vits_svc_tpu_torch.models import hubert as hubert_mod
+from whisper_vits_svc_tpu_torch.models import speaker_encoder as spk_mod
+from whisper_vits_svc_tpu_torch.models import whisper as whisper_mod
 from whisper_vits_svc_tpu_torch.models.synthesizer import slice_segments
 from whisper_vits_svc_tpu_torch.nn.snake import snake_alias_fused_cm
 from whisper_vits_svc_tpu_torch.ops import amp_cuda, snake_cuda
 from whisper_vits_svc_tpu_torch.train import checkpoint as tckpt
 from whisper_vits_svc_tpu_torch.train import loop as tloop
 from whisper_vits_svc_tpu_torch.train import step as tstep
+from whisper_vits_svc_tpu_torch.utils import audio_io
 from whisper_vits_svc_tpu_torch.utils.audio_io import save_wav
 from whisper_vits_svc_tpu_torch.utils.config import BASE_MODEL_CONFIG, config_from_dict
 from whisper_vits_svc_tpu_torch.utils.device import resolve_device
@@ -847,7 +876,9 @@ KERNEL_KINDS = (
     ("snake_strips", ("snake_alias_strips_kernel",)),
     ("snake_mma", ("snake_alias_mma_kernel",)),
     ("amp_iter", ("amp_iter_kernel",)),
-    ("conv", ("cudnn", "xmma", "implicit_gemm", "wgrad", "dgrad", "conv")),
+    # cuDNN's convolution kernels: implicit GEMMs ("fprop", "dgrad", "wgrad"),
+    # winograd, FFT; cuBLAS's sm80_xmma_gemm_* are matmuls
+    ("conv", ("cudnn", "fprop", "implicit", "wgrad", "dgrad", "conv", "winograd", "fft")),
     ("matmul", ("gemm", "cutlass", "sm90_")),
     ("optimizer", ("multi_tensor_apply",)),
     ("reduction", ("reduce_kernel",)),
@@ -1441,6 +1472,377 @@ def report_train_loop(hp, lp: dict, bare_step_ms: list, smi: str) -> None:
           f"{lp['divergence']}; the phase took {lp['phase_s']:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------- audio in
+
+# the published extractor widths: whisper large-v2 (the loader keeps 24 of
+# its 32 blocks), hubert-soft, CREPE "full", the LSTM speaker encoder
+AUDIO_IN_FULL = dict(
+    whisper=dict(n_mels=80, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=20,
+                 n_audio_layer=32),
+    hubert_layers=12, crepe="full", speaker=dict(lstm_dim=768, proj_dim=256, num_layers=3),
+    song_seconds=30.5, bank_clips=8, bank_seconds=25.0)
+SONG_SR = 44100  # the song is resampled to 16 kHz by the CLI's wave load
+VOICE_SECONDS = 4.0  # the speaker clip, and the CREPE clip held card against CPU
+# card against CPU, max abs err, each extractor at full width
+AUDIO_IN_ATOL = dict(ppg=1e-3, vec=1e-3, crepe_probs=1e-4, dvector=1e-5, retrieval=1e-4)
+LOAD_STAGES = ("load_whisper", "load_hubert", "load_crepe", "load_synthesizer", "load_banks")
+
+
+def synthetic_voice(seconds: float, sr: int, seed: int, f0: float = 220.0) -> np.ndarray:
+    """A sung line: notes of 0.5-1.5 s on a scale around f0 with vibrato,
+    10 harmonics, breath noise, and short rests between phrases."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    hz = np.empty(n)
+    start = 0
+    while start < n:
+        length = int(rng.uniform(0.5, 1.5) * sr)
+        hz[start : start + length] = f0 * 2 ** (rng.choice([0, 2, 4, 5, 7, 9, 12]) / 12)
+        start += length
+    hz *= 1 + 0.01 * np.sin(2 * np.pi * 5.5 * t)
+    phase = 2 * np.pi * np.cumsum(hz) / sr
+    voice = sum(np.sin(k * phase) / k for k in range(1, 11))
+    voice *= (np.sin(2 * np.pi * t / 3.1) > -0.8)  # rests
+    voice = voice / np.abs(voice).max() * 0.5 + 0.003 * rng.standard_normal(n)
+    return voice.astype(np.float32)
+
+
+def random_state_dict(module: torch.nn.Module, seed: int, device,
+                      dtype: torch.dtype = torch.float32) -> dict:
+    """Seeded random weights in `module`'s state_dict layout (a module on the
+    meta device gives the shapes), drawn on `device` and kept on the CPU in
+    `dtype`: matrices and convolutions N(0, 1 / fan_in), norm scales
+    1 + N(0, 0.01), biases N(0, 4e-4), BatchNorm means N(0, 0.01) and
+    variances 0.5 + |N(0, 1)|, weight-norm gains 2."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, t in module.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            out[k] = torch.zeros((), dtype=torch.int64)
+            continue
+        z = torch.randn(t.shape, generator=g, device=device)
+        if k.endswith("running_var"):
+            v = z.abs() + 0.5
+        elif k.endswith("running_mean"):
+            v = 0.1 * z
+        elif k.endswith("weight_g"):
+            v = torch.full(t.shape, 2.0, device=device)
+        elif t.dim() >= 2:
+            v = z * t[0].numel() ** -0.5
+        elif k.endswith("weight"):
+            v = 1.0 + 0.1 * z
+        else:
+            v = 0.02 * z
+        out[k] = v.to(dtype).cpu()
+    return out
+
+
+def state_bytes(sd: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in sd.values())
+
+
+def write_extractor_checkpoints(root: Path, widths: dict, device) -> dict:
+    """Seeded random checkpoints in the reference layouts: whisper
+    {dims, model_state_dict} with every encoder block in float16 as
+    large-v2.pt stores them, a hubert-soft state_dict (with its
+    pre-training-only keys), a torchcrepe state_dict, the speaker encoder's
+    {"model": state_dict}. Returns paths and the bytes reckoned from the
+    shapes."""
+    wd, out = widths["whisper"], {}
+    with torch.device("meta"):
+        enc = whisper_mod.WhisperEncoder(n_mels=wd["n_mels"], n_ctx=wd["n_audio_ctx"],
+                                         n_state=wd["n_audio_state"],
+                                         n_head=wd["n_audio_head"], n_layer=wd["n_audio_layer"])
+        hub = hubert_mod.HubertSoft(n_layers=widths["hubert_layers"])
+        cre = crepe_mod.Crepe(widths["crepe"])
+        spk = spk_mod.LSTMSpeakerEncoder(**widths["speaker"])
+    msd = {f"encoder.{k}": v for k, v in
+           random_state_dict(enc, 11, device, torch.float16).items()}
+    msd["encoder.positional_embedding"] = torch.from_numpy(
+        whisper_mod.sinusoids(wd["n_audio_ctx"], wd["n_audio_state"])).half()
+    hsd = random_state_dict(hub, 12, device)
+    g = torch.Generator().manual_seed(15)
+    hsd["masked_spec_embed"] = torch.rand(768, generator=g)
+    hsd["label_embedding.weight"] = torch.randn(100, 256, generator=g)
+    payloads = {"whisper": {"dims": dict(wd), "model_state_dict": msd},
+                "hubert": hsd, "crepe": random_state_dict(cre, 13, device),
+                "speaker": {"model": random_state_dict(spk, 14, device)}}
+    for name, payload in payloads.items():
+        path = root / f"{name}.pt"
+        torch.save(payload, path)
+        sd = payload.get("model_state_dict", payload.get("model", payload))
+        out[name] = dict(path=str(path), bytes=state_bytes(sd),
+                         params=sum(v.numel() for v in sd.values()), file=path.stat().st_size)
+    return out
+
+
+@contextlib.contextmanager
+def audio_in_probes(device):
+    """Wrap the CLI's stages from outside and time each call (the card
+    synchronised after it): the wave load and resample, each checkpoint
+    load (the synthesizer's build and load, the retrieval banks' load),
+    whisper, HuBERT, CREPE and its Viterbi decode, the retrieval blends and
+    synthesis. Yields the record, which also keeps synthesis's float
+    waveform."""
+    targets = [(audio_io, "load_wav", "load_resample"),
+               (whisper_mod, "load_whisper_encoder", "load_whisper"),
+               (hubert_mod, "load_hubert_soft", "load_hubert"),
+               (crepe_mod, "load_crepe", "load_crepe"),
+               (pipeline, "build_infer_model", "load_synthesizer"),
+               (pipeline, "load_svc_model", "load_synthesizer"),
+               (cli_inference, "create_retrieval", "load_banks"),
+               (whisper_mod, "pred_ppg", "whisper"), (hubert_mod, "pred_vec", "hubert"),
+               (crepe_mod, "compute_f0_sing", "crepe"), (crepe_mod, "viterbi_decode", "viterbi"),
+               (retrieval_mod.ArrayIndexRetrieval, "_blend", "retrieval"),
+               (pipeline, "svc_infer", "synthesis")]
+    orig = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+    rec = dict.fromkeys((key for _, _, key in targets), 0.0) | {"audio": None}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(device)
+            rec[key] += time.perf_counter() - t0
+            if key == "synthesis":
+                rec["audio"] = out[0]
+            return out
+        return wrapper
+
+    for (owner, name, key), (_, _, fn) in zip(targets, orig):
+        setattr(owner, name, timed(fn, key))
+    try:
+        yield rec
+    finally:
+        for owner, name, fn in orig:
+            setattr(owner, name, fn)
+
+
+def cli_request(workdir: Path, argv: list, device, n_snakes: int, hop: int, sr: int) -> dict:
+    """One wave-to-wave request through the port's CLI `main` in a fresh
+    working directory, every snake count set to 0 just before it and read
+    just after; checks the features it wrote, the waveform (finite, not
+    silent, the chunk plan's length at sr) and n_snakes launches per chunk."""
+    workdir.mkdir()
+    cwd = os.getcwd()
+    reset_counts()
+    os.chdir(workdir)
+    try:
+        with audio_in_probes(device) as rec:
+            sync(device)
+            t0 = time.perf_counter()
+            cli_inference.main(argv)
+            sync(device)
+            rec["wall"] = time.perf_counter() - t0
+        counts = read_counts()
+        ppg, vec = np.load("svc_tmp.ppg.npy"), np.load("svc_tmp.vec.npy")
+        pit = pipeline.load_csv_pitch("svc_tmp.pit.csv")
+        wav_sr, wav = wavfile.read("svc_out.wav")
+    finally:
+        os.chdir(cwd)
+    len_min = min(len(pit), 2 * len(ppg), 2 * len(vec))
+    chunks = len(pipeline._chunk_plan(len_min, 1000, 10))
+    audio = rec["audio"]
+    rms = float(np.sqrt(np.mean(np.square(wav / 32768.0))))
+    check(wav_sr == sr and wav.shape == audio.shape == (len_min * hop,),
+          f"svc_out.wav: {wav.shape} at {wav_sr} Hz, expected {len_min * hop} at {sr}")
+    check(bool(np.isfinite(audio).all()), "non-finite samples in the CLI's waveform")
+    check(rms > 1e-3, f"silent CLI output (rms {rms})")
+    check(counts["direct"] == n_snakes * chunks and counts["bwd"] == counts["strips"]
+          == counts["mma"] == counts["amp"] == 0,
+          f"{counts} launches for {chunks} chunks, expected {n_snakes} direct per chunk")
+    return rec | dict(counts=counts, chunks=chunks, frames=len_min, rms=rms, wav=wav,
+                      ppg_frames=len(ppg), vec_frames=len(vec), pit_frames=len(pit))
+
+
+def max_err(a, b) -> float:
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def audio_in_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
+                   n_snakes: int = 91) -> dict:
+    """Audio in, through the port's CLI: seeded random extractor checkpoints
+    at `widths` in the reference layouts, a speaker vector from the port's
+    compute_embedding on one synthetic voice, a synthetic song at 44.1 kHz,
+    then `main` from the wave alone (every feature extracted) in a fresh
+    directory; retrieval banks written by the port's build_index from the
+    extractors' features of a synthetic corpus; `main` again with
+    --enable-retrieval. Then each extractor and the blend on the card
+    against the CPU, the Viterbi path decoded on both sides from the card's
+    probabilities, and a profile of one extraction."""
+    root = Path(tempfile.mkdtemp(prefix="svc_audio_in_"))
+    phase_t0 = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        ckpts = write_extractor_checkpoints(root, widths, device)
+        hp = config_from_dict(base_hp)
+        model = pipeline.build_infer_model(hp, device=device, seed=0)
+        torch.save({"model_g": model.state_dict()}, root / "model.pth")
+        del model
+        (root / "config.json").write_text(json.dumps(base_hp))
+        write_s = time.perf_counter() - t0
+
+        voice = synthetic_voice(VOICE_SECONDS, 16000, seed=21, f0=180.0)
+        spk_card = spk_mod.load_speaker_encoder(ckpts["speaker"]["path"], device)
+        spk_cpu = spk_mod.load_speaker_encoder(ckpts["speaker"]["path"], "cpu")
+        dvec = spk_mod.compute_embedding(spk_card, voice)
+        dvec_err = max_err(dvec, spk_mod.compute_embedding(spk_cpu, voice))
+        np.save(root / "singer.spk.npy", dvec, allow_pickle=False)
+        song = synthetic_voice(widths["song_seconds"], SONG_SR, seed=22)
+        save_wav(str(root / "song.wav"), song, SONG_SR)
+
+        argv = ["--config", str(root / "config.json"), "--model", str(root / "model.pth"),
+                "--spk", str(root / "singer.spk.npy"), "--wave", str(root / "song.wav"),
+                "--whisper-ckpt", ckpts["whisper"]["path"],
+                "--hubert-ckpt", ckpts["hubert"]["path"],
+                "--crepe-ckpt", ckpts["crepe"]["path"], "--device", str(device)]
+        out = dict(hop=hp.data.hop_length, sr=hp.data.sampling_rate)
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        plain = cli_request(root / "request", argv, device, n_snakes, **out)
+        peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
+
+        # the banks: the extractors' features of a synthetic corpus of the singer
+        models = dict(whisper=whisper_mod.load_whisper_encoder(ckpts["whisper"]["path"], device),
+                      hubert=hubert_mod.load_hubert_soft(ckpts["hubert"]["path"], device),
+                      crepe=crepe_mod.load_crepe(ckpts["crepe"]["path"], device=device))
+        t0 = time.perf_counter()
+        files = dict(whisper=[], hubert=[])
+        for i in range(widths["bank_clips"]):
+            clip = synthetic_voice(widths["bank_seconds"], 16000, seed=30 + i, f0=180.0)
+            for name, feats in (("whisper", whisper_mod.pred_ppg(models["whisper"], clip)),
+                                ("hubert", hubert_mod.pred_vec(models["hubert"], clip))):
+                files[name].append(str(root / f"clip{i}.{name}.npy"))
+                np.save(files[name][-1], feats, allow_pickle=False)
+        banks = {name: retrieval_mod.build_index(f, str(root / f"singer_{name}.npz"))
+                 for name, f in files.items()}
+        bank_s = time.perf_counter() - t0
+        blended = cli_request(root / "request_retrieval",
+                              argv + ["--enable-retrieval", "--retrieval-index-prefix",
+                                      str(root / "singer_")], device, n_snakes, **out)
+        check(blended["wav"].shape == plain["wav"].shape
+              and np.abs(blended["wav"].astype(np.int32) - plain["wav"]).max() > 0,
+              "--enable-retrieval left the waveform as it was")
+
+        # the features' frame counts: whisper's windows cut to len // 320
+        # frames, HuBERT's to its conv arithmetic, CREPE at hop 320 repeated x2
+        song16 = audio_io.resample(song, SONG_SR, 16000)
+        n16, win16 = len(song16), 20 * 16000
+        want = dict(ppg_frames=n16 // whisper_mod.PPG_HOP,  # 15 s windows are whole frames
+                    vec_frames=sum(hubert_mod.hubert_num_frames(min(win16, n16 - s0))
+                                   for s0 in range(0, n16, win16)),
+                    pit_frames=2 * (1 + n16 // 320))
+        for r in (plain, blended):
+            check(all(r[k] == v for k, v in want.items()),
+                  f"feature frames { {k: r[k] for k in want} }, expected {want}")
+
+        # each extractor on the card against the CPU, at full width
+        errs = dict(dvector=dvec_err)
+        win = np.zeros((1, whisper_mod.WINDOW_SAMPLES), np.float32)
+        win[0] = song16[: whisper_mod.WINDOW_SAMPLES]
+        lens = np.array([whisper_mod.WINDOW_SAMPLES])
+        cpu = whisper_mod.load_whisper_encoder(ckpts["whisper"]["path"], "cpu")
+        errs["ppg"] = max_err(whisper_mod.ppg_window_batch(models["whisper"], win, lens),
+                              whisper_mod.ppg_window_batch(cpu, win, lens))
+        vwin = np.zeros((1, 20 * 16000), np.float32)
+        vwin[0, : min(len(song16), vwin.shape[1])] = song16[: vwin.shape[1]]
+        vlens = np.array([min(len(song16), vwin.shape[1])])
+        cpu = hubert_mod.load_hubert_soft(ckpts["hubert"]["path"], "cpu")
+        errs["vec"] = max_err(hubert_mod.vec_window_batch(models["hubert"], vwin, vlens),
+                              hubert_mod.vec_window_batch(cpu, vwin, vlens))
+        frames = crepe_mod.frame_audio(song16[: int(VOICE_SECONDS * 16000)], 320)
+        cpu = crepe_mod.load_crepe(ckpts["crepe"]["path"], device="cpu")
+        errs["crepe_probs"] = max_err(
+            crepe_mod.crepe_probabilities(models["crepe"], frames, batch_size=len(frames)),
+            crepe_mod.crepe_probabilities(cpu, frames, batch_size=len(frames)))
+        del cpu
+        ret = {d: retrieval_mod.ArrayIndexRetrieval(banks["whisper"], banks["hubert"], 0.5, 3,
+                                                    device=d) for d in (device, "cpu")}
+        ppg_req = np.repeat(np.load(root / "request" / "svc_tmp.ppg.npy"), 2, 0)[:CHUNK_FRAMES]
+        vec_req = np.repeat(np.load(root / "request" / "svc_tmp.vec.npy"), 2, 0)[:CHUNK_FRAMES]
+        errs["retrieval"] = max(
+            max_err(ret[device].retriv_whisper(ppg_req), ret["cpu"].retriv_whisper(ppg_req)),
+            max_err(ret[device].retriv_hubert(vec_req), ret["cpu"].retriv_hubert(vec_req)))
+        for key, tol in AUDIO_IN_ATOL.items():
+            check(errs[key] <= tol, f"audio in, card vs CPU: {key} max abs err {errs[key]:.3e} "
+                                    f"above {tol}")
+
+        # the Viterbi path from the card's probabilities of the whole song,
+        # decoded on the card and on the CPU
+        probs = crepe_mod.crepe_probabilities(models["crepe"], crepe_mod.frame_audio(song16, 320))
+        obs = crepe_mod.viterbi_observations(probs)
+        paths, vit_ms = {}, {}
+        for d in (device, "cpu"):
+            sync(device)
+            t0 = time.perf_counter()
+            paths[d] = crepe_mod.viterbi_decode(obs, device=d)
+            vit_ms[d] = 1e3 * (time.perf_counter() - t0)
+        check(np.array_equal(paths[device], paths["cpu"]),
+              f"Viterbi paths differ between {device} and the CPU at "
+              f"{np.flatnonzero(paths[device] != paths['cpu'])[:10]}")
+
+        prof = None
+        if torch.device(device).type == "cuda":
+            prof = profile(lambda: (
+                whisper_mod.pred_ppg(models["whisper"], song16,
+                                     rng=torch.Generator().manual_seed(0)),
+                hubert_mod.pred_vec(models["hubert"], song16),
+                crepe_mod.compute_f0_sing(models["crepe"], song16, np.random.default_rng(0))))
+        del models
+        return dict(ckpts=ckpts, write_s=write_s, plain=plain, blended=blended, peak=peak,
+                    bank_rows={k: len(v) for k, v in banks.items()}, bank_s=bank_s,
+                    errs=errs, viterbi_frames=len(obs), viterbi_ms=vit_ms, prof=prof,
+                    song_s=len(song) / SONG_SR, song_samples=len(song),
+                    phase_s=time.perf_counter() - phase_t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def report_audio_in(ai: dict, smi: str) -> None:
+    """The [audio-in] lines, each with the card's name and power limit."""
+    ck = ai["ckpts"]
+    print("[audio-in] checkpoints (seeded random, reference layouts; bytes reckoned from "
+          "the shapes, file bytes beside): " + "; ".join(
+              f"{k} {v['params'] / 1e6:.2f} M params, {v['bytes'] / 1e9:.3f} GB "
+              f"(file {v['file'] / 1e9:.3f} GB)" for k, v in ck.items())
+          + f"; written with the synthesizer's .pth in {ai['write_s']:.2f} s | {smi}", flush=True)
+    for label, r in (("request", ai["plain"]), ("request+retrieval", ai["blended"])):
+        loads = {k: r[k] for k in LOAD_STAGES}
+        stages = loads | dict(
+            load_resample=r["load_resample"], whisper=r["whisper"], hubert=r["hubert"],
+            crepe_without_viterbi=r["crepe"] - r["viterbi"], viterbi=r["viterbi"],
+            retrieval=r["retrieval"], synthesis=r["synthesis"] - r["retrieval"])
+        stages["other"] = r["wall"] - sum(stages.values())
+        compute = r["wall"] - sum(loads.values())
+        print(f"[audio-in] {label}: {ai['song_s']:.2f} s song at {SONG_SR} Hz -> "
+              f"{r['frames']} frames, {r['chunks']} chunks, {r['wav'].shape[0]} samples (rms "
+              f"{r['rms']:.4f}); CLI main wall {1e3 * r['wall']:.2f} ms, realtime "
+              f"x{ai['song_s'] / r['wall']:.2f} wave to wave (x{ai['song_s'] / compute:.2f} "
+              f"without the checkpoint loads); ms by stage "
+              + json.dumps({k: round(1e3 * v, 2) for k, v in stages.items()})
+              + f"; features ppg {r['ppg_frames']} vec {r['vec_frames']} pit {r['pit_frames']} "
+              f"frames; snake launches {r['counts']['direct']} "
+              f"({r['counts']['direct'] // r['chunks']} per chunk) | {smi}", flush=True)
+    print(f"[audio-in] peak device memory over the first request {ai['peak'] / 2**30:.2f} GiB; "
+          f"banks {ai['bank_rows']} rows written in {ai['bank_s']:.2f} s | {smi}", flush=True)
+    print("[audio-in] card vs CPU max abs err (tolerance): " + ", ".join(
+        f"{k} {v:.3e} ({AUDIO_IN_ATOL[k]})" for k, v in ai["errs"].items())
+          + f"; Viterbi over {ai['viterbi_frames']} frames from the card's probabilities: "
+          f"the card's path equals the CPU's; trellis + backtrace ms "
+          + json.dumps({str(k): round(v, 2) for k, v in ai["viterbi_ms"].items()})
+          + f" | {smi}", flush=True)
+    prof = ai["prof"]
+    if prof is not None:
+        print(prof["table"], flush=True)
+        print(f"[audio-in] profiled extraction (whisper, HuBERT, CREPE with its Viterbi; "
+              f"torch.profiler on): wall {prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['busy_ms']:.2f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%); "
+              f"device ms by kind " + json.dumps({k: round(v, 3) for k, v in prof["kinds"].items()})
+              + f" | {smi}", flush=True)
+    print(f"[audio-in] the phase took {ai['phase_s']:.1f} s | {smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1659,6 +2061,12 @@ def main() -> int:
     report_train_loop(hp, lp, tr["step_ms"], smi)
     loop_run = lp["runs"]["epoch"]
 
+    # audio in: the CLI from a wave file, the extractors at full width
+    ai = audio_in_phase(BASE_MODEL_CONFIG)
+    report_audio_in(ai, smi)
+    audio_in = {k: ai["plain"]["counts"][k] + ai["blended"]["counts"][k]
+                for k in ai["plain"]["counts"]}
+
     kernels = [{
         "name": "snake_alias", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": launches,
@@ -1669,7 +2077,8 @@ def main() -> int:
         "per": f"one {CHUNK_FRAMES}-frame chunk at base width, float32, {n_calls} calls",
         "launches_by_path": {"svc_infer": launches, "train_step": train_fwd,
                              "train_loop": loop_run["train_fwd"],
-                             "validate": loop_run["validate_fwd"]},
+                             "validate": loop_run["validate_fwd"],
+                             "audio_in": audio_in["direct"]},
         "train_step": fwd_per_step | {
             "bound_by": fwd_step_bound_by,
             "per": f"one training step at base width (batch {hp.train.batch_size}, "
@@ -1688,7 +2097,8 @@ def main() -> int:
                f"{seg_frames}-frame segments), float32, {n_train_calls} calls",
         "launches_by_path": {"svc_infer": infer_bwd, "train_step": train_bwd,
                              "train_loop": loop_run["counts"]["bwd"],
-                             "validate": loop_run["validate_bwd"]},
+                             "validate": loop_run["validate_bwd"],
+                             "audio_in": audio_in["bwd"]},
     }]
     chunk = f"one {CHUNK_FRAMES}-frame chunk at base width, float32"
     fused_run = alt_runs["fused"]
@@ -1705,7 +2115,8 @@ def main() -> int:
         "launches_by_path": {"svc_infer": counts_default["amp"],
                              "svc_infer_fused": fused_run["counts"]["amp"],
                              "train_step": counts["amp"],
-                             "train_loop": loop_run["counts"]["amp"]},
+                             "train_loop": loop_run["counts"]["amp"],
+                             "audio_in": audio_in["amp"]},
     })
     for variant, source, replaces in (("strips", SOURCE_STRIPS, REPLACES_STRIPS),
                                       ("mma", SOURCE_MMA, REPLACES_MMA)):
@@ -1723,7 +2134,8 @@ def main() -> int:
             "launches_by_path": {"svc_infer": counts_default[variant],
                                  f"svc_infer_{variant}": run["counts"][variant],
                                  "train_step": counts[variant],
-                                 "train_loop": loop_run["counts"][variant]},
+                                 "train_loop": loop_run["counts"][variant],
+                                 "audio_in": audio_in[variant]},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -56,7 +56,8 @@ def test_kernel_modules_and_sources_stand_alone():
     import re
 
     pkg = os.path.join(REPO, "whisper_vits_svc_tpu_torch")
-    for module in ("ops/snake_cuda.py", "ops/amp_cuda.py", "nn/amp.py", "nn/snake.py"):
+    for module in ("ops/snake_cuda.py", "ops/amp_cuda.py", "nn/amp.py", "nn/snake.py",
+                   "tools/crepe_conv_probe.py"):
         assert os.path.isfile(os.path.join(pkg, module)), module
     bad = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|whisper_vits_svc_tpu)(?:\.|\s|$)",
                      re.M)
@@ -144,10 +145,36 @@ def test_trainer_cli_needs_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
     assert np.random.get_state()[1][0] == np.random.RandomState(77).get_state()[1][0]
 
 
-def test_cli_requires_precomputed_features(tmp_path):
-    with pytest.raises(SystemExit, match="extractors .* are not ported"):
+def test_cli_requires_precomputed_features(tmp_path, monkeypatch):
+    """Without --wave the CLI needs every feature precomputed: a missing one
+    (with no svc_tmp.* file to reuse) stops it before any checkpoint is
+    read."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit, match="--wave is needed to extract --vec, --pit"):
         cli.main(["--config", "c.yaml", "--model", "m.ckpt", "--spk", "s.npy",
-                  "--ppg", "p.npy"])
+                  "--ppg", "p.npy", "--device", "cpu"])
+
+
+def test_cli_wave_path_needs_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
+    """From --wave the CLI refuses to start without CUDA, before it reads the
+    wave or a checkpoint or writes a feature; every extractor loader and the
+    retrieval banks refuse as well."""
+    from whisper_vits_svc_tpu_torch.infer import retrieval
+    from whisper_vits_svc_tpu_torch.models import crepe, hubert, speaker_encoder, whisper
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--config", "c.yaml", "--model", "m.pth", "--spk", "s.npy", "--wave", "w.wav"]
+    for extra in ([], ["--device", "cuda"], ["--enable-retrieval"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv + extra)
+    assert os.listdir(tmp_path) == []
+    for load in (whisper.load_whisper_encoder, hubert.load_hubert_soft, crepe.load_crepe,
+                 speaker_encoder.load_speaker_encoder):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            load("missing.pt")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        retrieval.ArrayIndexRetrieval(np.zeros((2, 4)), np.zeros((2, 4)), 0.5, 1)
 
 
 def test_cli_converts_on_cpu(tmp_path, monkeypatch):

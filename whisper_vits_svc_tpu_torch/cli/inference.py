@@ -1,61 +1,118 @@
-"""svc_inference CLI for precomputed features (reference svc_inference.py).
+"""svc_inference CLI (JAX whisper_vits_svc_tpu/cli/inference.py; reference
+svc_inference.py:206-241).
 
     python -m whisper_vits_svc_tpu_torch.cli.inference --config configs/base.yaml \
-        --model model.ckpt --spk spk.npy --ppg x.ppg.npy --vec x.vec.npy \
-        --pit x.pit.csv [--shift 2] [--out svc_out.wav] [--device cuda]
+        --model model.pth --spk spk.npy --wave song.wav [--shift 2] \
+        [--enable-retrieval --retrieval-index-prefix data_svc/index/spk_] \
+        [--out svc_out.wav] [--device cuda]
 
-Writes `--out` and svc_out_pit.wav (the excitation) as 16-bit WAVs. The
-feature extractors (whisper, hubert, crepe) are not ported yet, so --ppg,
---vec and --pit are required.
+Features not given (--ppg, --vec, --pit) are extracted from --wave in the
+process: whisper PPG (--whisper-ckpt), HuBERT-soft units (--hubert-ckpt) and
+CREPE F0 (--crepe-ckpt), written to svc_tmp.ppg.npy, svc_tmp.vec.npy and
+svc_tmp.pit.csv in the working directory and reused from there when present.
+Then chunked synthesis writes --out and svc_out_pit.wav (the excitation) as
+16-bit WAVs. Everything runs on the card; without CUDA the CLI refuses to
+start unless given --device cpu. Checkpoints load with
+torch.load(weights_only=True).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
-from scipy.io import wavfile
+import torch
 
 from ..infer import pipeline
-from ..infer.retrieval import DummyRetrieval
+from ..infer.retrieval import create_retrieval
+from ..models import crepe, hubert, whisper
+from ..utils import audio_io
 from ..utils.config import load_config
+from ..utils.device import resolve_device
 
-MAX_WAV_VALUE = 32768.0
+F0_ENGINES = ("crepe", "salience", "swipe", "yin", "pyin", "dio", "praat")
+PORTED_F0_ENGINES = ("crepe",)
+TMP_FEATURES = {"ppg": "svc_tmp.ppg.npy", "vec": "svc_tmp.vec.npy", "pit": "svc_tmp.pit.csv"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="svc_inference")
     p.add_argument("--config", required=True, help="yaml config")
     p.add_argument("--model", required=True, help="JAX .ckpt or reference .pth")
+    p.add_argument("--wave", default=None,
+                   help="input wav at any rate; needed unless --ppg, --vec and --pit are given")
     p.add_argument("--spk", required=True, help="speaker embedding npy")
-    p.add_argument("--ppg", default=None, help="whisper ppg npy (20 ms frames, repeated x2)")
-    p.add_argument("--vec", default=None, help="hubert vec npy (20 ms frames, repeated x2)")
-    p.add_argument("--pit", default=None, help="pitch csv")
+    p.add_argument("--ppg", default=None, help="whisper ppg npy (auto if absent)")
+    p.add_argument("--vec", default=None, help="hubert vec npy (auto if absent)")
+    p.add_argument("--pit", default=None, help="pitch csv (auto if absent)")
     p.add_argument("--shift", type=int, default=0, help="semitones")
+    p.add_argument("--enable-retrieval", action="store_true")
+    p.add_argument("--retrieval-index-prefix", default="",
+                   help="the banks are <prefix>whisper.npz and <prefix>hubert.npz")
+    p.add_argument("--retrieval-ratio", type=float, default=0.5)
+    p.add_argument("--n-retrieval-vectors", type=int, default=3)
+    p.add_argument("--whisper-ckpt", default="whisper_pretrain/large-v2.pt")
+    p.add_argument("--hubert-ckpt", default="hubert_pretrain/hubert-soft-0d54a1f4.pt")
+    p.add_argument("--crepe-ckpt", default="crepe/assets/full.pth")
+    p.add_argument("--f0-engine", default="crepe", choices=F0_ENGINES,
+                   help="pitch extractor for the auto --pit path; only crepe is ported")
     p.add_argument("--out", default="svc_out.wav")
     p.add_argument("--chunk-batch", type=int, default=1,
                    help="chunks per model call, stacked on the batch axis")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return p
 
 
-def save_wav(path: str, audio: np.ndarray, sr: int) -> None:
-    """float32 [-1, 1] -> int16 WAV."""
-    pcm = np.clip(np.asarray(audio, np.float32) * MAX_WAV_VALUE,
-                  -MAX_WAV_VALUE, MAX_WAV_VALUE - 1)
-    wavfile.write(path, sr, pcm.astype(np.int16))
+def auto_extract(args, device: torch.device) -> None:
+    """Fills args.ppg / vec / pit with the svc_tmp.* paths when absent and
+    extracts from args.wave those files that do not exist yet."""
+    todo = []
+    for key, path in TMP_FEATURES.items():
+        if getattr(args, key) is None:
+            setattr(args, key, path)
+            if not os.path.isfile(path):
+                todo.append(key)
+    if not todo:
+        return
+    if args.wave is None:
+        raise SystemExit(f"--wave is needed to extract {', '.join('--' + k for k in todo)}; "
+                         "pass it, or pass precomputed --ppg, --vec and --pit")
+    audio16, _ = audio_io.load_wav(args.wave, target_sr=16000)
+    if "ppg" in todo:
+        print(f"Auto run : whisper ppg -> {args.ppg}")
+        model = whisper.load_whisper_encoder(args.whisper_ckpt, device)
+        ppg = whisper.pred_ppg(model, audio16, rng=torch.Generator().manual_seed(0))
+        np.save(args.ppg, ppg, allow_pickle=False)
+        del model
+    if "vec" in todo:
+        print(f"Auto run : hubert vec -> {args.vec}")
+        model = hubert.load_hubert_soft(args.hubert_ckpt, device)
+        np.save(args.vec, hubert.pred_vec(model, audio16), allow_pickle=False)
+        del model
+    if "pit" in todo:
+        print(f"Auto run : crepe pitch -> {args.pit}")
+        model = crepe.load_crepe(args.crepe_ckpt, device=device)
+        pipeline.save_csv_pitch(crepe.compute_f0_sing(model, audio16, np.random.default_rng(0)),
+                                args.pit)
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    missing = [f"--{k}" for k in ("ppg", "vec", "pit") if getattr(args, k) is None]
-    if missing:
-        raise SystemExit(
-            f"missing {', '.join(missing)}: the feature extractors (whisper, hubert, "
-            "crepe) are not ported to PyTorch yet; pass precomputed features")
+    if args.f0_engine not in PORTED_F0_ENGINES:
+        waiting = ", ".join(e for e in F0_ENGINES if e not in PORTED_F0_ENGINES)
+        raise SystemExit(f"--f0-engine {args.f0_engine} is not ported to PyTorch yet: "
+                         f"{', '.join(PORTED_F0_ENGINES)} runs; {waiting} wait")
+    device = resolve_device(args.device)
+    auto_extract(args, device)
+
     hp = load_config(args.config)
-    model = pipeline.build_infer_model(hp, device=args.device)
+    model = pipeline.build_infer_model(hp, device=device)
     pipeline.load_svc_model(args.model, model)
+    prefix = args.retrieval_index_prefix
+    retrieval = create_retrieval(args.enable_retrieval, args.retrieval_ratio,
+                                 args.n_retrieval_vectors, prefix + "whisper.npz",
+                                 prefix + "hubert.npz", device=device)
 
     spk = np.load(args.spk)
     ppg = np.repeat(np.load(args.ppg), 2, 0)  # 320 -> 160-hop x2
@@ -65,10 +122,10 @@ def main(argv=None):
     pit = pipeline.shift_pitch(pit, args.shift)
 
     audio, source = pipeline.svc_infer(
-        model, DummyRetrieval(), spk, pit, ppg, vec, hp, return_source=True,
-        chunk_batch=args.chunk_batch, device=args.device)
-    save_wav("svc_out_pit.wav", source, hp.data.sampling_rate)
-    save_wav(args.out, audio, hp.data.sampling_rate)
+        model, retrieval, spk, pit, ppg, vec, hp, return_source=True,
+        chunk_batch=args.chunk_batch, device=device)
+    audio_io.save_wav("svc_out_pit.wav", source, hp.data.sampling_rate)
+    audio_io.save_wav(args.out, audio, hp.data.sampling_rate)
     print(f"wrote {args.out}")
 
 

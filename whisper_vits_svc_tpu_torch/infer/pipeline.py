@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..models.convert import from_jax_params, load_jax_ckpt, load_tolerant
+from ..models.convert import from_jax_params, load_jax_ckpt, load_tolerant, torch_load_weights
 from ..models.synthesizer import SynthesizerInfer
 from ..nn.nsf import source_hn_nsf
 from ..utils.config import Config
@@ -66,7 +66,7 @@ def load_svc_model(path: str, model: SynthesizerInfer) -> SynthesizerInfer:
     """Key-tolerant load into `model` from a JAX `.ckpt` (its `model_g`
     tree) or a reference `.pth`/`.pt` (its `model_g` state_dict)."""
     if path.endswith((".pth", ".pt")):
-        sd = torch.load(path, map_location="cpu", weights_only=True)["model_g"]
+        sd = torch_load_weights(path)["model_g"]
     else:
         sd = from_jax_params(load_jax_ckpt(path)["model_g"])
     for k in load_tolerant(model, sd):

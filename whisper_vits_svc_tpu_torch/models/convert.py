@@ -10,8 +10,12 @@ of `convert.synthesizer_trn` and `convert.discriminator`: a JAX
 SynthesizerTrn tree and a JAX Discriminator tree to the training models'
 state_dicts. `from_jax_opt_state` carries a JAX optimizer state (optax
 AdamW moments, the MultiSteps accumulator) into a torch AdamW state_dict.
-`load_jax_ckpt` reads a JAX `.ckpt` (flax msgpack) with plain `msgpack`,
-imported lazily.
+`from_jax_whisper`, `from_jax_hubert`, `from_jax_crepe` and
+`from_jax_speaker_encoder` are the inverses of the extractors' converters
+(`convert_encoder`, `convert_hubert`, `convert_crepe`,
+`convert_speaker_encoder`). `load_jax_ckpt` reads a JAX `.ckpt` (flax
+msgpack) with plain `msgpack`, imported lazily; `torch_load_weights` reads
+a `.pth` with `weights_only=True`.
 
 Layouts: JAX Conv1d (K, I, O) -> torch (O, I, K); JAX ConvTranspose1d
 (K, I, O) -> torch (I, O, K); JAX Conv2d (Kh, Kw, I, O) -> torch
@@ -22,6 +26,7 @@ Linear (O, I); LayerNorm scale/bias -> gamma/beta.
 
 from __future__ import annotations
 
+import pickle
 import re
 from collections import OrderedDict
 from typing import Mapping
@@ -198,6 +203,98 @@ def from_jax_disc_params(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
+def _linear(sd: dict, name: str, p: Mapping) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _layer_norm(sd: dict, name: str, p: Mapping) -> None:
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def from_jax_whisper(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX WhisperEncoder params -> the port's WhisperEncoder state_dict
+    (the reference's encoder keys without "encoder.")."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    _conv1d(sd, "conv1", tree["conv1"])
+    _conv1d(sd, "conv2", tree["conv2"])
+    for i in range(_count(tree, "blocks")):
+        b, p = f"blocks.{i}", tree[f"blocks_{i}"]
+        for proj in ("query", "key", "value", "out"):
+            _linear(sd, f"{b}.attn.{proj}", p["attn"][proj])
+        _layer_norm(sd, f"{b}.attn_ln", p["attn_ln"])
+        _linear(sd, f"{b}.mlp.0", p["mlp_0"])
+        _linear(sd, f"{b}.mlp.2", p["mlp_2"])
+        _layer_norm(sd, f"{b}.mlp_ln", p["mlp_ln"])
+    _layer_norm(sd, "ln_post", tree["ln_post"])
+    return sd
+
+
+def from_jax_hubert(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX HubertSoft params -> the port's HubertSoft state_dict (any number
+    of layers)."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    fe = tree["feature_extractor"]
+    for i in range(7):
+        _conv1d(sd, f"feature_extractor.conv{i}", fe[f"conv{i}"])
+    _layer_norm(sd, "feature_extractor.norm0", fe["norm0"])
+    _layer_norm(sd, "feature_projection.norm", tree["fp_norm"])
+    _linear(sd, "feature_projection.projection", tree["fp_projection"])
+    pos = tree["positional_embedding"]
+    sd["positional_embedding.conv.weight_g"] = _t(np.reshape(pos["g"], (1, 1, -1)))
+    sd["positional_embedding.conv.weight_v"] = _t(np.transpose(pos["v"], (2, 1, 0)))
+    sd["positional_embedding.conv.bias"] = _t(pos["bias"])
+    _layer_norm(sd, "norm", tree["norm"])
+    for i in range(_count(tree, "layer")):
+        b, p = f"encoder.layers.{i}", tree[f"layer_{i}"]
+        sd[f"{b}.self_attn.in_proj_weight"] = _t(np.asarray(p["in_proj"]["kernel"]).T)
+        sd[f"{b}.self_attn.in_proj_bias"] = _t(p["in_proj"]["bias"])
+        _linear(sd, f"{b}.self_attn.out_proj", p["out_proj"])
+        _linear(sd, f"{b}.linear1", p["linear1"])
+        _linear(sd, f"{b}.linear2", p["linear2"])
+        _layer_norm(sd, f"{b}.norm1", p["norm1"])
+        _layer_norm(sd, f"{b}.norm2", p["norm2"])
+    _linear(sd, "proj", tree["proj"])
+    return sd
+
+
+def from_jax_crepe(tree: Mapping, bn_eps: float = 0.0010000000474974513
+                   ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX Crepe params -> the port's Crepe state_dict. The JAX tree holds
+    each BatchNorm folded to (scale, bias); it goes into conv{i}_BN as
+    weight = scale, bias = bias, running mean 0 and running var 1 - eps,
+    so that the port's fold, weight / sqrt(var + eps), gives the scale back
+    (1 - eps + eps rounds to 1 in float32)."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    for i in range(1, 7):
+        sd[f"conv{i}.weight"] = _t(np.transpose(tree[f"conv{i}"]["kernel"], (3, 2, 0, 1)))
+        sd[f"conv{i}.bias"] = _t(tree[f"conv{i}"]["bias"])
+        scale = np.asarray(tree[f"bn{i}_scale"], np.float32)
+        sd[f"conv{i}_BN.weight"] = _t(scale)
+        sd[f"conv{i}_BN.bias"] = _t(tree[f"bn{i}_bias"])
+        sd[f"conv{i}_BN.running_mean"] = torch.zeros(scale.shape)
+        sd[f"conv{i}_BN.running_var"] = torch.full(scale.shape, 1.0 - bn_eps)
+        sd[f"conv{i}_BN.num_batches_tracked"] = torch.tensor(0)
+    _linear(sd, "classifier", tree["classifier"])
+    return sd
+
+
+def from_jax_speaker_encoder(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX LSTMSpeakerEncoder params -> the port's state_dict (the
+    reference's layers.{i}.lstm / layers.{i}.linear keys)."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    for i in range(_count(tree, "lstm")):
+        b, p = f"layers.{i}", tree[f"lstm_{i}"]
+        sd[f"{b}.lstm.weight_ih_l0"] = _t(np.asarray(p["w_ih"]).T)
+        sd[f"{b}.lstm.weight_hh_l0"] = _t(np.asarray(p["w_hh"]).T)
+        sd[f"{b}.lstm.bias_ih_l0"] = _t(p["b_ih"])
+        sd[f"{b}.lstm.bias_hh_l0"] = _t(p["b_hh"])
+        sd[f"{b}.linear.weight"] = _t(np.asarray(tree[f"proj_{i}"]).T)
+    return sd
+
+
 def from_jax_opt_state(tree: Mapping, params_to_sd) -> dict:
     """A JAX optimizer state (`serialization.to_state_dict` of the opt_state
     in a `.ckpt`) -> the port's optimizer entry: a torch AdamW
@@ -252,6 +349,19 @@ def load_jax_ckpt(path: str) -> dict:
 
     with open(path, "rb") as f:
         return msgpack.unpackb(f.read(), ext_hook=_ndarray_from_ext, raw=False)
+
+
+def torch_load_weights(path: str):
+    """torch.load(weights_only=True) on the CPU: tensors, numbers, strings
+    and plain containers load; a file that pickles other objects is refused
+    with an error that names weights_only (unpickling runs arbitrary code)."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        raise ValueError(
+            f"{path} holds pickled objects besides tensors and plain containers: it "
+            f"does not load with torch.load(weights_only=True), and the port loads "
+            f"nothing else") from e
 
 
 def load_tolerant(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> list[str]:

@@ -1,0 +1,273 @@
+"""CREPE pitch tracker: conv stack and Viterbi decode (JAX
+whisper_vits_svc_tpu/models/crepe.py; reference torchcrepe model.py:14-134,
+core.py:539-700, decode.py:55-80, convert.py:12-57, filter.py:10-134).
+
+  * 6 convolution layers over 1024-sample windows (the reference's Conv2d
+    parameters, kernels of width 1, run as Conv1d), each ReLU, BatchNorm
+    (eval: folded to a per-channel scale and bias, as the JAX package
+    folds it at load) and a max-pool by 2; a sigmoid over 360 bins of 20
+    cents;
+  * framing on the host, per-frame mean/std normalisation on the device, in
+    batches of 512 frames;
+  * the Viterbi decode over the frequency-masked, softmaxed bin
+    probabilities with the reference's triangular transition matrix: the
+    trellis runs on the model's device, one 360 x 360 max and argmax per
+    frame; the backtrace on the host;
+  * cents -> Hz with the optional triangular dither, and NaN-aware mean and
+    median filters, in numpy.
+
+Random draws (the audio noise, the dither) come from a numpy Generator in
+the JAX package's order, so the same seed gives the same F0.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..utils.device import resolve_device
+from .convert import torch_load_weights
+
+CENTS_PER_BIN = 20.0
+PITCH_BINS = 360
+SAMPLE_RATE = 16000
+WINDOW_SIZE = 1024
+CENTS_OFFSET = 1997.3794084376191
+MAX_FMAX = 2006.0
+BN_EPS = 0.0010000000474974513  # torchcrepe's BatchNorm2d eps (model.py)
+
+CAPACITIES = {"full": ([1024, 128, 128, 128, 256, 512], 2048),
+              "tiny": ([128, 16, 16, 16, 32, 64], 256)}
+
+
+class Crepe(nn.Module):
+    """capacity "full" or "tiny" (torchcrepe model.py:20-28)."""
+
+    def __init__(self, capacity: str = "full"):
+        super().__init__()
+        if capacity not in CAPACITIES:
+            raise ValueError(capacity)
+        out_ch, self.in_features = CAPACITIES[capacity]
+        in_ch = [1] + out_ch[:-1]
+        for i in range(6):
+            k, stride = ((512, 1), (4, 1)) if i == 0 else ((64, 1), (1, 1))
+            setattr(self, f"conv{i + 1}", nn.Conv2d(in_ch[i], out_ch[i], k, stride=stride))
+            setattr(self, f"conv{i + 1}_BN",
+                    nn.BatchNorm2d(out_ch[i], eps=BN_EPS, momentum=0.0))
+        self.classifier = nn.Linear(self.in_features, PITCH_BINS)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """[N, 1024] normalised windows -> [N, 360] sigmoid probabilities.
+
+        The reference's (K, 1) Conv2d kernels run as Conv1d over [N, C, H]:
+        the same sums, but for the 2-D form cuDNN's heuristics pick FFT
+        algorithms at these shapes (on an H100: 467 ms and 32.6 GiB for 512
+        frames of "full", against 66 ms and 1.5 GiB; tools/crepe_conv_probe.py)."""
+        x = frames[:, None, :]  # [N, 1, 1024]
+        for i in range(1, 7):
+            conv, bn = getattr(self, f"conv{i}"), getattr(self, f"conv{i}_BN")
+            x = F.pad(x, (254, 254) if i == 1 else (31, 32))
+            x = F.relu(F.conv1d(x, conv.weight[..., 0], conv.bias, stride=conv.stride[0]))
+            scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+            bias = bn.bias - bn.running_mean * scale
+            x = F.max_pool1d(x * scale[:, None] + bias[:, None], 2, 2)
+        # flatten in (h, c) order, as torchcrepe (and the JAX NHWC reshape) do
+        return torch.sigmoid(self.classifier(x.transpose(1, 2).reshape(len(x), self.in_features)))
+
+
+def load_crepe(ckpt_path: str, capacity: str | None = None,
+               device: str | torch.device | None = "cuda") -> Crepe:
+    """torchcrepe `full.pth` / `tiny.pth` state_dict -> Crepe in eval mode on
+    `device` (the card by default); capacity None reads it from the first
+    conv's width."""
+    dev = resolve_device(device)
+    sd = torch_load_weights(ckpt_path)
+    if capacity is None:
+        width = sd["conv1.weight"].shape[0]
+        capacity = next(c for c, (out_ch, _) in CAPACITIES.items() if out_ch[0] == width)
+    model = Crepe(capacity)
+    model.load_state_dict(sd, strict=True)
+    return model.to(dev).eval()
+
+
+# ------------------------------------------------------------------ framing
+
+
+def frame_audio(audio: np.ndarray, hop_length: int) -> np.ndarray:
+    """Pad WINDOW/2 and frame (torchcrepe core.py:preprocess). [T] -> [N, 1024]."""
+    total_frames = 1 + len(audio) // hop_length
+    padded = np.pad(audio, (WINDOW_SIZE // 2, WINDOW_SIZE // 2))
+    idx = np.arange(total_frames)[:, None] * hop_length + np.arange(WINDOW_SIZE)[None, :]
+    return padded[idx].astype(np.float32)
+
+
+def normalize_frames(frames: torch.Tensor) -> torch.Tensor:
+    """Per-frame mean-centre and std-scale, the std Bessel-corrected
+    (core.py:695-700)."""
+    frames = frames - frames.mean(dim=1, keepdim=True)
+    return frames / frames.std(dim=1, keepdim=True).clamp_min(1e-10)
+
+
+# ------------------------------------------------------------------ decoding
+
+
+def bins_to_cents(bins, dither_rng: np.random.Generator | None = None):
+    cents = CENTS_PER_BIN * np.asarray(bins, np.float64) + CENTS_OFFSET
+    if dither_rng is not None:
+        # triangular dither removes the quantisation error (convert.py:52-57)
+        cents = cents + dither_rng.triangular(-CENTS_PER_BIN, 0.0, CENTS_PER_BIN, cents.shape)
+    return cents
+
+
+def cents_to_frequency(cents):
+    return 10.0 * 2.0 ** (np.asarray(cents) / 1200.0)
+
+
+def frequency_to_bins(freq, quantize=np.floor):
+    cents = 1200.0 * np.log2(np.asarray(freq, np.float64) / 10.0)
+    return quantize((cents - CENTS_OFFSET) / CENTS_PER_BIN).astype(np.int64)
+
+
+def _transition_matrix() -> np.ndarray:
+    xx, yy = np.meshgrid(range(PITCH_BINS), range(PITCH_BINS))
+    t = np.maximum(12 - abs(xx - yy), 0).astype(np.float64)
+    return (t / t.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
+def _log_transition() -> np.ndarray:
+    """log(transition + 1e-30) over the full [from, to] matrix, float32."""
+    return np.log(_transition_matrix() + np.float32(1e-30))
+
+
+def viterbi_trellis(log_prob: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[T, S] log observation probabilities on any device -> (the last
+    step's values [S], backpointers [T - 1, S]), float32 on that device.
+
+    One step: scores[from, to] = value[from] + log_trans[from, to]; the
+    pointer is the first argmax over `from` (torch.argmax's tie rule, on
+    the card as on the CPU), the value the max plus the observation."""
+    dev = log_prob.device
+    log_trans = torch.from_numpy(_log_transition()).to(dev)
+    value = log_prob[0] + np.float32(np.log(np.float32(1.0 / PITCH_BINS)))
+    ptrs = torch.empty((max(len(log_prob) - 1, 0), PITCH_BINS), dtype=torch.int64, device=dev)
+    for t in range(1, len(log_prob)):
+        scores = value[:, None] + log_trans
+        ptrs[t - 1] = scores.argmax(dim=0)
+        value = scores.amax(dim=0) + log_prob[t]
+    return value, ptrs
+
+
+def viterbi_decode(probs: np.ndarray, device: str | torch.device = "cpu") -> np.ndarray:
+    """[T, 360] probabilities (softmaxed) -> [T] bin path: the HMM of
+    librosa.sequence.viterbi with the reference's transition matrix
+    (decode.py:55-80); the trellis on `device`, the backtrace on the host."""
+    log_prob = np.log(np.maximum(probs, 1e-30)).astype(np.float32)
+    value, ptrs = viterbi_trellis(torch.from_numpy(log_prob).to(device))
+    value, ptrs = value.cpu().numpy(), ptrs.cpu().numpy()
+    path = np.empty(len(probs), np.int64)
+    path[-1] = int(np.argmax(value))
+    for t in range(len(probs) - 2, -1, -1):
+        path[t] = ptrs[t, path[t + 1]]
+    return path
+
+
+# ------------------------------------------------------------------ filters
+
+
+def nan_mean_filter(x: np.ndarray, win_length: int = 9) -> np.ndarray:
+    """NaN-aware moving average (reference filter.mean, filter.py:10-62)."""
+    mask = ~np.isnan(x)
+    vals = np.where(mask, x, 0.0)
+    kernel = np.ones(win_length)
+    pad = win_length // 2
+    summed = np.convolve(np.pad(vals, (pad, pad)), kernel, "valid")
+    count = np.convolve(np.pad(mask.astype(np.float64), (pad, pad)), kernel, "valid")
+    out = summed / np.maximum(count, 1.0)
+    out[out == 0] = np.nan
+    return out[: len(x)]
+
+
+def nan_median_filter(x: np.ndarray, win_length: int) -> np.ndarray:
+    """NaN-aware moving median (reference filter.median, filter.py:65-134)."""
+    pad = win_length // 2
+    mask = ~np.isnan(x)
+    vals = np.where(mask, x, 0.0)
+    vp = np.pad(vals, (pad, pad), mode="reflect")
+    mp = np.pad(mask.astype(np.float64), (pad, pad), mode="constant")
+    idx = np.arange(len(x))[:, None] + np.arange(win_length)[None, :]
+    win_v = np.where(mp[idx] > 0, vp[idx], np.inf)
+    win_sorted = np.sort(win_v, axis=1)
+    count = mp[idx].sum(axis=1).astype(np.int64)
+    out = win_sorted[np.arange(len(x)), np.maximum((count - 1) // 2, 0)]
+    out[np.isinf(out)] = np.nan
+    return out
+
+
+# ------------------------------------------------------------------ pipeline
+
+
+def crepe_probabilities(model: Crepe, frames: np.ndarray, batch_size: int = 512) -> np.ndarray:
+    """[N, 1024] raw frames -> [N, 360] probabilities, normalised and run on
+    the model's device in batches of batch_size frames (the last one
+    zero-padded; frames are independent, so values do not depend on it)."""
+    dev = next(model.parameters()).device
+    n = len(frames)
+    frames = np.pad(frames, ((0, (-n) % batch_size), (0, 0)))
+    with torch.inference_mode():
+        probs = [model(normalize_frames(torch.from_numpy(frames[i : i + batch_size]).to(dev)))
+                 for i in range(0, len(frames), batch_size)]
+        return torch.cat(probs).cpu().numpy()[:n]
+
+
+def viterbi_observations(probs: np.ndarray, fmin: float = 50.0,
+                         fmax: float = 1000.0) -> np.ndarray:
+    """What the decode reads: the bins outside [fmin, fmax] masked
+    (core.py:postprocess), then a softmax over bins (decode.py:64-67)."""
+    masked = probs.copy()
+    masked[:, : frequency_to_bins(fmin)] = -np.inf
+    masked[:, frequency_to_bins(fmax, np.ceil) :] = -np.inf
+    ex = np.exp(masked - masked.max(axis=1, keepdims=True))
+    return ex / ex.sum(axis=1, keepdims=True)
+
+
+def predict(model: Crepe, audio16k: np.ndarray, hop_length: int = 160, fmin: float = 50.0,
+            fmax: float = 1000.0, batch_size: int = 512,
+            dither_rng: np.random.Generator | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """-> (pitch Hz [T], periodicity [T]) (torchcrepe predict, core.py:49)."""
+    probs = crepe_probabilities(model, frame_audio(audio16k, hop_length), batch_size)
+    bins = viterbi_decode(viterbi_observations(probs, fmin, fmax),
+                          device=next(model.parameters()).device)
+    pitch = cents_to_frequency(bins_to_cents(bins, dither_rng)).astype(np.float32)
+    periodicity = probs[np.arange(len(probs)), bins].astype(np.float32)
+    return pitch, periodicity
+
+
+def _noisy(audio16k: np.ndarray, rng: np.random.Generator | None) -> np.ndarray:
+    audio = audio16k.astype(np.float32)
+    if rng is not None:
+        audio = audio + rng.standard_normal(len(audio)).astype(np.float32) * 0.001
+    return audio
+
+
+def compute_f0(model: Crepe, audio16k: np.ndarray, rng: np.random.Generator | None = None,
+               batch_size: int = 512) -> np.ndarray:
+    """Train-prep F0 at hop 160 (prepare/preprocess_crepe.py:11-44):
+    +0.001 sigma audio noise, median-7 periodicity, mean-5 pitch smoothing,
+    pitch[periodicity < 0.5] = 0."""
+    pitch, peri = predict(model, _noisy(audio16k, rng), hop_length=160, dither_rng=rng,
+                          batch_size=batch_size)
+    peri = nan_median_filter(peri.astype(np.float64), 7)
+    pitch = nan_mean_filter(pitch.astype(np.float64), 5)
+    pitch = np.where(np.nan_to_num(peri) < 0.5, 0.0, np.nan_to_num(pitch))
+    return pitch.astype(np.float32)
+
+
+def compute_f0_sing(model: Crepe, audio16k: np.ndarray,
+                    rng: np.random.Generator | None = None) -> np.ndarray:
+    """Inference F0 (pitch/inference.py:74-101): +0.001 sigma audio noise,
+    hop 320, x2 repeat to the 160-hop rate, mean-5 smoothing (no U/V gate)."""
+    pitch, _ = predict(model, _noisy(audio16k, rng), hop_length=320, dither_rng=rng)
+    pitch = nan_mean_filter(np.repeat(pitch, 2).astype(np.float64), 5)
+    return np.nan_to_num(pitch).astype(np.float32)

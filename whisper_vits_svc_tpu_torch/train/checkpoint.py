@@ -20,7 +20,6 @@ the posterior, the speaker classifier and the speaker embedding.
 from __future__ import annotations
 
 import os
-import pickle
 import re
 from collections import OrderedDict
 from typing import Mapping
@@ -29,7 +28,7 @@ import torch
 
 from ..models.convert import (
     from_jax_disc_params, from_jax_opt_state, from_jax_params, from_jax_trn_params,
-    load_jax_ckpt,
+    load_jax_ckpt, torch_load_weights,
 )
 from .step import TrainState
 
@@ -62,16 +61,6 @@ def save(path: str, g_state: TrainState, d_state: TrainState, step: int, epoch: 
     os.replace(tmp, path)
 
 
-def _torch_load(path: str) -> dict:
-    try:
-        return torch.load(path, map_location="cpu", weights_only=True)
-    except pickle.UnpicklingError as e:
-        raise ValueError(
-            f"{path} holds pickled objects besides tensors and plain containers: it "
-            f"does not load with torch.load(weights_only=True), and the port loads "
-            f"nothing else") from e
-
-
 def _g_params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     # an export holds the inference graph only (enc_p, flow, dec)
     return from_jax_trn_params(tree) if "enc_q" in tree else from_jax_params(tree)
@@ -82,7 +71,7 @@ def load(path: str) -> dict:
     `.ckpt` converted (parameters, optimizer states, step, epoch, and its
     hp_raw as hp_str)."""
     if path.endswith((".pth", ".pt")):
-        return _torch_load(path)
+        return torch_load_weights(path)
     tree = load_jax_ckpt(path)
     return {
         "model_g": _g_params_from_jax(tree["model_g"]),
@@ -172,7 +161,7 @@ def export_inference(path: str, g: torch.nn.Module | Mapping[str, torch.Tensor])
 def load_torch_pretrain(path: str) -> dict:
     """A reference `.pth` (or a bare generator state_dict) as a warm-start
     payload, loaded with weights_only=True."""
-    ckpt = _torch_load(path)
+    ckpt = torch_load_weights(path)
     return {"model_g": ckpt.get("model_g", ckpt), "model_d": ckpt.get("model_d", {}),
             "optim_g": None, "optim_d": None, "step": int(ckpt.get("step", 0)),
             "epoch": int(ckpt.get("epoch", 1)), "hp_str": ""}

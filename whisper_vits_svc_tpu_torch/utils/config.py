@@ -1,11 +1,13 @@
 """Config tree: a dot-access dict, loaded from the repo's YAML configs.
 
-PyYAML is imported only inside `load_config`, so code that builds a config
-from a dict (`config_from_dict`, `BASE_MODEL_CONFIG`) runs without it.
+PyYAML is imported only inside `load_config`, and only for a YAML file, so
+code that builds a config from a dict (`config_from_dict`,
+`BASE_MODEL_CONFIG`) or reads a `.json` config runs without it.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Mapping
 
 
@@ -29,12 +31,17 @@ class Config(dict):
 
 def load_config(path: str) -> Config:
     """The YAML file as a Config; its text is kept under "raw" (stored in
-    checkpoints as hp_str, to warn when a resumed run's config differs)."""
-    import yaml
-
+    checkpoints as hp_str, to warn when a resumed run's config differs). A
+    `.json` file (JSON is YAML too) reads without PyYAML."""
     with open(path, "r") as f:
         raw = f.read()
-    cfg = Config._wrap(yaml.safe_load(raw))
+    if path.endswith(".json"):
+        tree = json.loads(raw)
+    else:
+        import yaml
+
+        tree = yaml.safe_load(raw)
+    cfg = Config._wrap(tree)
     cfg["raw"] = raw
     return cfg
 
