@@ -52,10 +52,12 @@ Phases (any failure exits non-zero without the final line):
    one more step;
 8. training card vs CPU: the seeded initial weights, a 2 x 100-frame batch,
    every stochastic node frozen, the CPU taking the card's ReLU/abs
-   branches; loss terms within rtol 1e-4; G's backward of one fixed audio gradient within
-   relative L2 1e-4 per parameter; each audio loss term's gradient with
-   respect to the audio, and every parameter gradient of the step, within
-   relative L2 1e-3.
+   branches on 8 threads, pinned (the reference's float32 sums move with
+   the thread count; train_check_probe.py); loss terms within rtol 1e-4; G's
+   backward of one fixed audio
+   gradient within relative L2 1e-4 per parameter; each audio loss term's
+   gradient with respect to the audio, and every parameter gradient of the
+   step, within relative L2 1e-3.
 
 9. alternative kernels vs plain: the strips and the mma snake kernels at the
    five stage shapes, at odd shapes and at the JAX package's strips test
@@ -122,6 +124,19 @@ Phases (any failure exits non-zero without the final line):
    decoded on the card and on the CPU from the card's probabilities, equal.
    Prints ms by stage and the realtime factor of each request, the peak
    device memory, and the device busy share of a profiled extraction.
+
+13. the rest of inference: on a 30.5 s song with features in, the CLI's
+   `main` in float32 and with --bf16 (91 snake launches a chunk, all
+   bfloat16 under --bf16; the bf16 waveform against the float32 one within
+   the JAX package's bf16 bound, median abs < 0.05 and correlation > 0.9;
+   wall, realtime factor, peak memory, device ms of one chunk in each dtype
+   from torch.profiler); a fast_edges request (200 frames) on the card and
+   the CPU within 5e-5 with no snake kernel launched; every --f0-engine on
+   the song, the card's F0 against the CPU's where the engine has a device
+   part (voicing equal on all but 1% of frames, voiced F0 within 50 cents);
+   the silero VAD with seeded random weights on the card against the CPU
+   (1e-4) and apply_vad_mask on the song; merge and eva through cli.misc,
+   the merged model through one chunk.
 
 Then prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.
@@ -233,6 +248,14 @@ LARGE_ARG_SHAPES = ((2, 16, 1024), (16, 160, 125), (1, 20, 163200))
 TRAIN_FRAMES = 300  # 3 s utterances, as bench_train.py:22
 TIMED_STEPS = 4
 CHECK_BATCH, CHECK_FRAMES, CHECK_SLICE_IDS = 2, 100, (0, 61)
+# the CPU reference's thread count, pinned: oneDNN and MKL split their float32
+# sums by thread, and the MR-STFT log loss's audio gradient carries that
+# rounding into the last stage's gradients. train_check_probe.py on an H100
+# host: worst gradient 4.03e-3 / 1.08e-3 / 0.93e-3 / 0.94e-3 / 0.52e-3 on
+# 1 / 2 / 4 / 8 / 16 threads, 2.07e-3 against a float64 CPU (the card's own
+# float32 error in that ill-conditioned loss). 8: the card machine's cores,
+# which every passing run of PR 2-7 had by default
+CHECK_CPU_THREADS = 8
 # the JAX package's fused-iteration and strips test shapes
 # (tests/test_snake_fused.py:230-231, :297-298) and odd ones: T no multiple of
 # anything, T shorter than the halo, T = 1, C = 32, B = 2
@@ -681,15 +704,16 @@ def check_corner(shape, dtype, seed: int, large: bool = False, misaligned: bool 
                 max_abs_x_alpha=(x.float().abs().amax(dim=(0, 2)) * alpha.exp()).max().item())
 
 
-def per_call_sum(rows, stages, extra: tuple[str, ...] = ()) -> tuple[dict, str]:
+def per_call_sum(rows, stages, extra: tuple[str, ...] = (),
+                 dtype: str = "float32") -> tuple[dict, str]:
     """Kernel, plain and bound ms (and any `extra` column) summed over the
-    calls of `stages`, f32."""
+    calls of `stages`, at `dtype`."""
     columns = {"ms": "kernel_ms", "plain_ms": "plain_ms", "bound_ms": "bound_ms"}
     columns |= {name: name for name in extra}
     total = dict.fromkeys(columns, 0.0)
     bound_by = set()
     for shape, calls in stages:
-        r = next(r for r in rows if r["shape"] == list(shape) and r["dtype"] == "float32")
+        r = next(r for r in rows if r["shape"] == list(shape) and r["dtype"] == dtype)
         for name, column in columns.items():
             total[name] += calls * r[column]
         bound_by.add(r["bound_by"])
@@ -1024,27 +1048,48 @@ def branch_pattern(replay: list | None = None):
         F.leaky_relu, torch.relu, torch.abs = orig["leaky_relu"], orig["relu"], orig["abs"]
 
 
-def train_card_vs_cpu(hp, g_model, d_model) -> dict:
+def train_card_vs_cpu(hp, g_model, d_model, device="cuda",
+                      cpu_dtype: torch.dtype = torch.float32,
+                      cpu_threads: int | None = CHECK_CPU_THREADS) -> dict:
     """loss_and_grads on the card and on the CPU, same batch, every
     stochastic node frozen, and every ReLU, leaky-ReLU and abs on the CPU
     taking the branch it took on the card. Both sides start from the seeded
     initial weights, loaded into the card's models, so that the reading does
     not depend on the card's non-deterministic weight-gradient sums in the
-    steps before."""
+    steps before. The CPU side computes in `cpu_dtype` (its inputs are the
+    card's float32 values, exact in float64) on `cpu_threads` threads (the
+    process's count is restored after; None keeps it). `device` is the
+    card's side (the CPU to rehearse the check)."""
     g_state, d_state = tstep.init_train_states(hp, seed=0, device="cpu")
     g_cpu, d_cpu = g_state.model, d_state.model
     g_model.load_state_dict(g_cpu.state_dict())
     d_model.load_state_dict(d_cpu.state_dict())
+    g_cpu.to(cpu_dtype)
+    d_cpu.to(cpu_dtype)
+    np_dtype = {torch.float32: np.float32, torch.float64: np.float64}[cpu_dtype]
     batch = train_batch(hp, CHECK_BATCH, CHECK_FRAMES, seed=99)
+    batch_cpu = {k: v.astype(np_dtype) if v.dtype == np.float32 else v for k, v in batch.items()}
     frozen = dict(train=False, perturb=False, noise_scale=0.0)
     ids = torch.tensor(CHECK_SLICE_IDS)
+    threads = torch.get_num_threads()
+    if cpu_threads:
+        torch.set_num_threads(cpu_threads)
+    try:
+        return _train_card_vs_cpu(hp, g_model, d_model, g_cpu, d_cpu, batch, batch_cpu, ids,
+                                  frozen, device)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _train_card_vs_cpu(hp, g_model, d_model, g_cpu, d_cpu, batch, batch_cpu, ids, frozen,
+                       device) -> dict:
     with branch_pattern() as card_branches:
-        card = tstep.loss_and_grads(hp, g_model, d_model, batch, slice_ids=ids.cuda(),
+        card = tstep.loss_and_grads(hp, g_model, d_model, batch, slice_ids=ids.to(device),
                                     **frozen)
-    torch.cuda.synchronize()
+    sync(device)
     t0 = time.perf_counter()
     with branch_pattern(replay=card_branches["taken"]) as cpu_branches:
-        cpu = tstep.loss_and_grads(hp, g_cpu, d_cpu, batch, slice_ids=ids, **frozen)
+        cpu = tstep.loss_and_grads(hp, g_cpu, d_cpu, batch_cpu, slice_ids=ids, **frozen)
     cpu_s = time.perf_counter() - t0
     loss_err = {k: abs(float(card[2][k]) - float(cpu[2][k])) / abs(float(cpu[2][k]))
                 for k in cpu[2]}
@@ -1053,7 +1098,7 @@ def train_card_vs_cpu(hp, g_model, d_model) -> dict:
         norms = {name: torch.linalg.vector_norm(b).item()
                  for (name, _), b in zip(model.named_parameters(), gp)}
         for (name, _), a, b in zip(model.named_parameters(), gc, gp):
-            d = torch.linalg.vector_norm(a.cpu() - b).item()
+            d = torch.linalg.vector_norm(a.cpu().double() - b).item()
             if name.endswith(ZERO_GRAD_SUFFIX):
                 scale = norms[name.replace(".conv_k.", ".conv_q.")]
                 size = max(torch.linalg.vector_norm(a).item(), norms[name])
@@ -1068,26 +1113,36 @@ def train_card_vs_cpu(hp, g_model, d_model) -> dict:
     # loss term's gradient with respect to it on both sides, then G's VJP
     # of one fixed d loss / d audio on both sides
     def rel_l2(a, ref):
-        return (torch.linalg.vector_norm(a.cpu() - ref) / torch.linalg.vector_norm(ref)).item()
+        return (torch.linalg.vector_norm(a.cpu().double() - ref)
+                / torch.linalg.vector_norm(ref)).item()
 
-    inputs = {k: torch.as_tensor(v) for k, v in batch.items()}
+    def to_card(t):
+        return t.to(device, torch.float32) if t.is_floating_point() else t.to(device)
+
+    def same_values(t):
+        """t rounded to float32 values, in the CPU side's dtype: both sides
+        then start from the same numbers."""
+        return t.float().to(g_cpu.emb_g.weight.dtype)
+
+    inputs = {k: torch.as_tensor(v) for k, v in batch_cpu.items()}
     args = [inputs[k] for k in ("ppg", "vec", "pit", "spec", "spk", "ppg_l", "spec_l")]
     out_cpu = g_cpu(*args, slice_ids=ids, **frozen)
     real = slice_segments(inputs["audio"], out_cpu.ids_slice * hp.data.hop_length,
                           hp.data.segment_size)
+    fake = same_values(out_cpu.fake_audio.detach())
     audio_grads, taken = [], None
-    for where, disc in (("cuda", d_model), ("cpu", d_cpu)):
-        audio = out_cpu.fake_audio.detach().to(where).requires_grad_(True)
+    for move, disc in ((to_card, d_model), (lambda t: t, d_cpu)):
+        audio = move(fake).requires_grad_(True)
         with branch_pattern(replay=taken) as branches:
-            terms = tstep.audio_losses(hp, disc, audio, real.to(where))
+            terms = tstep.audio_losses(hp, disc, audio, move(real))
         taken = branches["taken"]
         audio_grads.append({k: torch.autograd.grad(terms[k], audio, retain_graph=True)[0]
                             for k in ("loss_m", "loss_s", "score_loss", "feat_loss")})
     term_rel = {k: rel_l2(audio_grads[0][k], v) for k, v in audio_grads[1].items()}
-    d_audio = sum(audio_grads[1].values())
-    out_card = g_model(*(a.cuda() for a in args), slice_ids=ids.cuda(), **frozen)
+    d_audio = same_values(sum(audio_grads[1].values()))
+    out_card = g_model(*(to_card(a) for a in args), slice_ids=ids.to(device), **frozen)
     vjp_card = torch.autograd.grad(out_card.fake_audio, list(g_model.parameters()),
-                                   d_audio.cuda(), allow_unused=True)
+                                   to_card(d_audio), allow_unused=True)
     vjp_cpu = torch.autograd.grad(out_cpu.fake_audio, list(g_cpu.parameters()), d_audio,
                                   allow_unused=True)
     vjp_rel = sorted(((rel_l2(a, c), name) for (name, _), a, c
@@ -1130,6 +1185,356 @@ def write_dataset(hp, root: Path, seed: int) -> tuple[str, str, int]:
     train.write_text("\n".join(rows))
     valid.write_text("\n".join(rows[:LOOP_VAL_UTTERANCES]))
     return str(train), str(valid), sum(f.stat().st_size for f in root.iterdir())
+
+
+EXTRAS_SONG_SECONDS = 30.5  # [audio-in]'s song
+# F0 on the card against the port's CPU on the same song (the engines whose
+# device part differs: the FFTs, STFT products and Viterbi trellises in
+# float32): the share of frames whose voicing may differ, and the largest
+# difference, in cents, of a frame voiced on both sides
+F0_VOICING_SHARE = 0.01
+F0_CENTS = 50.0
+# silero speech probabilities, card vs CPU, float32 both: with silero_random's
+# weights the CPU's float32 is 7.9e-5 from float64 on the CPU; the card was
+# 2.14e-4 from the CPU (my chip run, PR 8, H100 80GB HBM3, 700 W)
+VAD_ATOL = 1e-3
+MERGE_RATIO = 0.3
+
+
+def silero_random(seed: int) -> dict:
+    """A SileroVAD state_dict at the v3 widths: the blob's hann DFT basis,
+    a normalised 7-tap filter and seeded random weights elsewhere, the
+    matrices 3x random_state_dict's so that the probabilities spread
+    (0.13-0.50 over a sung line, where 1x keeps them within 0.49-0.50)."""
+    from whisper_vits_svc_tpu_torch.models import silero_vad
+
+    with torch.device("meta"):
+        shapes = silero_vad.SileroVAD()
+    sd = {k: 3.0 * v if v.dim() >= 2 else v
+          for k, v in random_state_dict(shapes, seed, "cpu").items()}
+    n = torch.arange(silero_vad.N_FFT, dtype=torch.float64)
+    k = torch.arange(silero_vad.N_FFT // 2 + 1, dtype=torch.float64)[:, None]
+    window = 0.5 - 0.5 * torch.cos(2 * torch.pi * n / silero_vad.N_FFT)
+    phase = 2 * torch.pi * k * n / silero_vad.N_FFT
+    sd["stft_basis"] = (torch.cat([torch.cos(phase), -torch.sin(phase)]) * window).float()
+    sd["an_filter"] = torch.softmax(sd["an_filter"], 0)
+    for name in sd:
+        if name.endswith("bn_scale"):
+            sd[name] = sd[name].abs() + 0.5
+    return sd
+
+
+@contextlib.contextmanager
+def snake_dtypes():
+    """Count the direct snake kernel's launches by the dtype of their input
+    (wrapping the wrapper, whose count it leaves as it is)."""
+    orig = snake_cuda.snake_alias_cuda
+    seen: dict = {}
+
+    def wrapped(x, alpha, beta):
+        key = str(x.dtype).removeprefix("torch.")
+        seen[key] = seen.get(key, 0) + 1
+        return orig(x, alpha, beta)
+
+    snake_cuda.snake_alias_cuda = wrapped
+    try:
+        yield seen
+    finally:
+        snake_cuda.snake_alias_cuda = orig
+
+
+def extras_request(workdir: Path, argv: list, device, n_snakes: int, hop: int) -> dict:
+    """One request through the CLI's `main` with features in, in a fresh
+    working directory, every count set to 0 just before it and read just
+    after; records the wall, svc_infer's wall and waveform, the snake
+    launches by dtype and the peak device memory."""
+    workdir.mkdir()
+    cwd, rec = os.getcwd(), dict(load=0.0)
+    orig = {name: getattr(pipeline, name)
+            for name in ("svc_infer", "build_infer_model", "load_svc_model")}
+
+    def timed(name):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig[name](*args, **kwargs)
+            sync(device)
+            if name == "svc_infer":
+                rec["synthesis"], rec["audio"] = time.perf_counter() - t0, out[0]
+            else:
+                rec["load"] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    os.chdir(workdir)
+    for name in orig:
+        setattr(pipeline, name, timed(name))
+    try:
+        with snake_dtypes() as dtypes:
+            sync(device)
+            t0 = time.perf_counter()
+            cli_inference.main(argv)
+            sync(device)
+            rec["wall"] = time.perf_counter() - t0
+        counts = read_counts()
+        wav_sr, wav = wavfile.read("svc_out.wav")
+    finally:
+        for name, fn in orig.items():
+            setattr(pipeline, name, fn)
+        os.chdir(cwd)
+    frames = len(rec["audio"]) // hop
+    chunks = len(pipeline._chunk_plan(frames, 1000, 10))
+    audio = rec["audio"]
+    check(wav.shape == audio.shape and bool(np.isfinite(audio).all())
+          and float(np.sqrt(np.mean(np.square(audio)))) > 1e-3,
+          f"request {workdir.name}: {wav.shape} samples, finite {np.isfinite(audio).all()}")
+    check(counts["direct"] == n_snakes * chunks and counts["bwd"] == counts["strips"]
+          == counts["mma"] == counts["amp"] == 0,
+          f"request {workdir.name}: {counts} launches for {chunks} chunks, expected "
+          f"{n_snakes} direct per chunk")
+    peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
+    return rec | dict(counts=counts, dtypes=dict(dtypes), chunks=chunks, frames=frames,
+                      peak=peak, sr=wav_sr)
+
+
+def f0_agreement(card: np.ndarray, cpu: np.ndarray) -> dict:
+    """Voicing flips (share of frames) and the largest cents difference of
+    the frames voiced on both sides."""
+    n = min(len(card), len(cpu))
+    card, cpu = card[:n], cpu[:n]
+    both = (card > 0) & (cpu > 0)
+    cents = np.abs(1200.0 * np.log2(card[both] / cpu[both])) if both.any() else np.zeros(1)
+    return dict(frames=n, voiced=float((card > 0).mean()),
+                flips=float(((card > 0) != (cpu > 0)).mean()), max_cents=float(cents.max()),
+                p99_cents=float(np.percentile(cents, 99)), same_len=len(card) == len(cpu))
+
+
+def infer_extras_phase(base_hp, smi: str, device="cuda", n_snakes: int = 91,
+                       song_seconds: float = EXTRAS_SONG_SECONDS,
+                       crepe_capacity: str = "full") -> dict:
+    """The rest of inference through the port's entry points: the CLI's
+    `main` with features in, float32 and --bf16 (snake launches by dtype,
+    the waveforms held to each other within the JAX package's bf16 bound),
+    device ms per chunk of both from torch.profiler; a fast_edges request on
+    the card and on the CPU (no snake kernel); every --f0-engine on the song
+    (card against CPU where the engine has a device part); the silero VAD
+    (card against CPU) and the post filter's mask; merge and eva through
+    cli.misc, the merged model through one chunk. Prints each part's lines,
+    with `smi` (the card's name and power limit), as it goes."""
+    from whisper_vits_svc_tpu_torch.cli import misc as cli_misc
+    from whisper_vits_svc_tpu_torch.infer import post as post_mod
+    from whisper_vits_svc_tpu_torch.models import silero_vad
+
+    root = Path(tempfile.mkdtemp(prefix="svc_infer_extras_"))
+    phase_t0 = time.perf_counter()
+    dev = torch.device(device)
+    try:
+        hp = config_from_dict(base_hp)
+        hop = hp.data.hop_length
+        model = pipeline.build_infer_model(hp, device=dev, seed=0)
+        torch.save({"model_g": model.state_dict()}, root / "model.pth")
+        (root / "config.json").write_text(json.dumps(base_hp))
+        song = synthetic_voice(song_seconds, SONG_SR, seed=22)
+        save_wav(str(root / "song.wav"), song, SONG_SR)
+        song16, _ = audio_io.load_wav(str(root / "song.wav"), target_sr=16000)
+        n = len(song16) // 320  # feature frames at the extractors' 320-sample hop
+        spk, pit, _, _ = features(hp, 2 * n, seed=40)
+        _, _, ppg, vec = features(hp, n, seed=41)
+        for name, arr in (("spk", spk), ("ppg", ppg), ("vec", vec)):
+            np.save(root / f"{name}.npy", arr, allow_pickle=False)
+        pipeline.save_csv_pitch(pit, str(root / "pit.csv"))
+        argv = ["--config", str(root / "config.json"), "--model", str(root / "model.pth"),
+                "--spk", str(root / "spk.npy"), "--ppg", str(root / "ppg.npy"),
+                "--vec", str(root / "vec.npy"), "--pit", str(root / "pit.csv"),
+                "--device", str(dev)]
+        out = dict(song_s=len(song) / SONG_SR)
+
+        # float32 and bf16 requests; the first bf16 one warms bf16 up
+        reqs = {}
+        for label, extra in (("bf16_first", ["--bf16"]), ("f32", []), ("bf16", ["--bf16"])):
+            reqs[label] = extras_request(root / label, argv + extra, dev, n_snakes, hop)
+        for label in ("bf16_first", "bf16"):
+            r = reqs[label]
+            check(r["dtypes"] == ({"bfloat16": n_snakes * r["chunks"]} if n_snakes else {}),
+                  f"{label} request: snake launches by dtype {r['dtypes']}, expected "
+                  f"{n_snakes} bfloat16 per chunk")
+        check(reqs["f32"]["dtypes"] == ({"float32": n_snakes * reqs["f32"]["chunks"]}
+                                        if n_snakes else {}),
+              f"f32 request: snake launches by dtype {reqs['f32']['dtypes']}")
+        a32, a16 = reqs["f32"]["audio"], reqs["bf16"]["audio"]
+        out["bf16_median"] = float(np.median(np.abs(a16 - a32)))
+        out["bf16_max"] = float(np.abs(a16 - a32).max())
+        out["bf16_corr"] = float(np.corrcoef(a16, a32)[0, 1])
+        check(out["bf16_median"] < 0.05 and out["bf16_corr"] > 0.9,
+              f"bf16 against f32 waveform: median abs {out['bf16_median']:.3e}, "
+              f"correlation {out['bf16_corr']:.5f} (JAX's bound: < 0.05, > 0.9)")
+        out["bf16_repeat"] = float(np.abs(reqs["bf16_first"]["audio"] - a16).max())
+        out["reqs"] = {k: {key: v[key] for key in ("wall", "synthesis", "load", "counts",
+                                                 "dtypes", "chunks", "frames", "peak")}
+                       for k, v in reqs.items()}
+        for label in ("f32", "bf16"):
+            r = reqs[label]
+            print(f"[infer-extras] {label} request, features in: {out['song_s']:.2f} s song, "
+                  f"{r['frames']} frames, {r['chunks']} chunks; CLI main wall "
+                  f"{1e3 * r['wall']:.2f} ms (realtime x{out['song_s'] / r['wall']:.2f}), "
+                  f"the synthesizer's build and load {1e3 * r['load']:.2f} ms, svc_infer "
+                  f"{1e3 * r['synthesis']:.2f} ms (x{out['song_s'] / r['synthesis']:.2f}); "
+                  f"snake launches "
+                  f"{r['counts']['direct']} by dtype {json.dumps(r['dtypes'])}; peak device "
+                  f"memory {r['peak'] / 2**30:.2f} GiB | {smi}", flush=True)
+        r = reqs["bf16_first"]
+        print(f"[infer-extras] the first bf16 request (warm-up): wall {1e3 * r['wall']:.2f} ms, "
+              f"build and load {1e3 * r['load']:.2f} ms, svc_infer "
+              f"{1e3 * r['synthesis']:.2f} ms; its waveform against the second's max abs "
+              f"{out['bf16_repeat']:.3e} | {smi}", flush=True)
+        print(f"[infer-extras] bf16 against f32 waveform: median abs {out['bf16_median']:.3e}, "
+              f"max {out['bf16_max']:.3e}, correlation {out['bf16_corr']:.6f} (JAX's bound: "
+              f"median < 0.05, correlation > 0.9) | {smi}", flush=True)
+
+        # device time of one 1020-frame chunk in each dtype
+        one = features(hp, 1000, seed=42)
+        run = dict(hp=hp, device=dev)
+        out["chunk_prof"] = {}
+        if dev.type == "cuda":
+            for label, dt in (("f32", None), ("bf16", torch.bfloat16)):
+                pipeline.svc_infer(model, DummyRetrieval(), *one, compute_dtype=dt, **run)
+                prof = profile(lambda dt=dt: pipeline.svc_infer(
+                    model, DummyRetrieval(), *one, compute_dtype=dt, **run))
+                out["chunk_prof"][label] = {k: prof[k] for k in ("wall_ms", "busy_ms", "kinds",
+                                                                 "counts")}
+                print(f"[infer-extras] one 1020-frame chunk, {label}, torch.profiler on: wall "
+                      f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f} ms "
+                      f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%); device ms by kind "
+                      + json.dumps({k: round(v, 3) for k, v in prof["kinds"].items()})
+                      + f"; kernels by kind {json.dumps(prof['counts'])} | {smi}", flush=True)
+
+        # fast_edges: the plain zero-padded snake chain, no kernel
+        fast = pipeline.build_infer_model(hp, device=dev, seed=0, fast_edges=True)
+        fast_cpu = pipeline.build_infer_model(hp, device="cpu", seed=0, fast_edges=True)
+        fast_cpu.load_state_dict({k: v.cpu() for k, v in fast.state_dict().items()})
+        short = features(hp, 200, seed=2)
+        reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        card = pipeline.svc_infer(fast, DummyRetrieval(), *short, hp=hp, out_chunk=200,
+                                  device=dev)
+        sync(dev)
+        out["fast_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["fast_counts"] = read_counts()
+        cpu = pipeline.svc_infer(fast_cpu, DummyRetrieval(), *short, hp=hp, out_chunk=200,
+                                 device="cpu")
+        out["fast_err"] = max_err(card, cpu)
+        check(sum(out["fast_counts"].values()) == 0,
+              f"fast_edges launched snake kernels: {out['fast_counts']}")
+        print(f"[infer-extras] fast_edges, 200 frames: {out['fast_ms']:.2f} ms on the card, "
+              f"{sum(out['fast_counts'].values())} snake kernel launches; card vs CPU max abs "
+              f"err {out['fast_err']:.3e} (tolerance {CARD_VS_CPU_ATOL}) | {smi}", flush=True)
+        check(out["fast_err"] <= CARD_VS_CPU_ATOL,
+              f"fast_edges card vs CPU max abs err {out['fast_err']:.3e}")
+        del fast, fast_cpu
+
+        # every F0 engine on the song; warmed up on a second of it first
+        with torch.device("meta"):
+            shapes = crepe_mod.Crepe(crepe_capacity)
+        crepe_path = str(root / "crepe.pth")
+        torch.save(random_state_dict(shapes, 13, dev), crepe_path)
+        out["f0"] = {}
+        for engine in cli_inference.F0_ENGINES:
+            cli_inference.extract_f0(engine, song16[:16000], crepe_path, dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            f0 = cli_inference.extract_f0(engine, song16, crepe_path, dev)
+            sync(dev)
+            row = dict(ms=1e3 * (time.perf_counter() - t0), frames=len(f0),
+                       voiced=float((f0 > 0).mean()))
+            if engine not in ("crepe", "dio", "praat"):
+                t0 = time.perf_counter()
+                f0_cpu = cli_inference.extract_f0(engine, song16, crepe_path,
+                                                  torch.device("cpu"))
+                row["cpu_ms"] = 1e3 * (time.perf_counter() - t0)
+                row |= f0_agreement(f0, f0_cpu)
+            where = {"dio": "numpy on the host in both packages",
+                     "praat": "numpy on the host in both packages",
+                     "crepe": "card; card vs CPU held in [audio-in]"}.get(engine)
+            if where is None:
+                where = (f"card vs CPU ({row['cpu_ms']:.0f} ms on the CPU): voicing differs on "
+                         f"{100 * row['flips']:.3f}% of frames (bound "
+                         f"{100 * F0_VOICING_SHARE}%), voiced on both within "
+                         f"{row['max_cents']:.4f} cents (p99 {row['p99_cents']:.4f}; bound "
+                         f"{F0_CENTS})")
+            print(f"[infer-extras] --f0-engine {engine}: {row['ms']:.2f} ms for the song, "
+                  f"{row['frames']} frames, {100 * row['voiced']:.1f}% voiced; {where} | {smi}",
+                  flush=True)
+            if "flips" in row:
+                check(row["same_len"] and row["flips"] <= F0_VOICING_SHARE
+                      and row["max_cents"] <= F0_CENTS, f"{engine} F0 card vs CPU: {row}")
+            out["f0"][engine] = row
+
+        # the silero VAD card against CPU, the post filter's mask on the song
+        sd = silero_random(16)
+        vads = {d: silero_vad.build_silero_vad(sd, d) for d in (dev, "cpu")}
+        probs = {d: silero_vad.silero_speech_probs(m, song16) for d, m in vads.items()}
+        out["vad_err"] = max_err(probs[dev], probs["cpu"])
+        post_mod.apply_vad_mask(a32, song16, vad_model=vads[dev])
+        sync(dev)
+        t0 = time.perf_counter()
+        masked = post_mod.apply_vad_mask(a32, song16, vad_model=vads[dev])
+        sync(dev)
+        out["vad_ms"] = 1e3 * (time.perf_counter() - t0)
+        print(f"[infer-extras] silero VAD (seeded random weights), {len(probs['cpu'])} windows: "
+              f"card vs CPU max abs err {out['vad_err']:.3e} (tolerance {VAD_ATOL}), "
+              f"probabilities {probs['cpu'].min():.3f}-{probs['cpu'].max():.3f}; "
+              f"apply_vad_mask on the song {out['vad_ms']:.2f} ms, "
+              f"{100 * np.mean(masked != 0):.1f}% of samples kept | {smi}", flush=True)
+        check(out["vad_err"] <= VAD_ATOL, f"silero probabilities card vs CPU: "
+                                          f"{out['vad_err']:.3e}")
+
+        # merge and eva through cli.misc; the merged model through one chunk
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            for seed in (1, 2):
+                m = pipeline.build_infer_model(hp, device=dev, seed=seed)
+                torch.save({"model_g": m.state_dict()}, f"m{seed}.pth")
+                np.save(f"s{seed}.npy", features(hp, 1, seed=50 + seed)[0], allow_pickle=False)
+            t0 = time.perf_counter()
+            cli_misc.main(["merge", "--model1", "m1.pth", "--model2", "m2.pth", "--ratio",
+                           str(MERGE_RATIO), "--out", "merged.pth"])
+            out["merge_ms"] = 1e3 * (time.perf_counter() - t0)
+            cli_misc.main(["eva", "--spk", "s1.npy", "s2.npy", "--weights", "0.5", "0.5",
+                           "--out", "eva.npy"])
+            merged = pipeline.build_infer_model(hp, device=dev, seed=0)
+            pipeline.load_svc_model("merged.pth", merged)
+            a, b = (torch.load(f"m{i}.pth", map_location="cpu", weights_only=True)["model_g"]
+                    for i in (1, 2))
+            for k, v in merged.state_dict().items():
+                want = a[k].numpy() * MERGE_RATIO + b[k].numpy() * (1.0 - MERGE_RATIO)
+                check(np.array_equal(v.cpu().numpy(), want),
+                      f"merged {k} is not the lerp of the two models")
+            eva = np.load("eva.npy")
+            check(np.array_equal(eva, np.load("s1.npy") * 0.5 + np.load("s2.npy") * 0.5),
+                  "eva.npy is not the weighted sum")
+        finally:
+            os.chdir(cwd)
+        reset_counts()
+        audio = pipeline.svc_infer(merged, DummyRetrieval(), eva, *one[1:], **run)
+        out["merge_counts"] = read_counts()
+        out["merge_rms"] = float(np.sqrt(np.mean(np.square(audio))))
+        check(audio.shape == (1000 * hop,) and bool(np.isfinite(audio).all())
+              and out["merge_rms"] > 1e-3, "the merged model's chunk")
+        print(f"[infer-extras] merge (ratio {MERGE_RATIO}) via cli.misc {out['merge_ms']:.2f} ms, "
+              f"every parameter the lerp; eva the weighted sum; the merged model through one "
+              f"chunk: rms {out['merge_rms']:.4f}, snake launches "
+              f"{out['merge_counts']['direct']} | {smi}", flush=True)
+        check(out["merge_counts"]["direct"] == n_snakes,
+              f"merged model: {out['merge_counts']} launches for one chunk")
+        out["phase_s"] = time.perf_counter() - phase_t0
+        print(f"[infer-extras] the phase took {out['phase_s']:.1f} s | {smi}", flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def sync(device) -> None:
@@ -2067,6 +2472,17 @@ def main() -> int:
     audio_in = {k: ai["plain"]["counts"][k] + ai["blended"]["counts"][k]
                 for k in ai["plain"]["counts"]}
 
+    # the rest of inference: --bf16, fast_edges, every F0 engine, the VAD
+    # post filter, merge and eva
+    ex = infer_extras_phase(BASE_MODEL_CONFIG, smi)
+    b1_bf16, b1_bf16_by = per_call_sum(rows, stages, dtype="bfloat16")
+    print(f"[infer-extras] B1 at bf16, a 1020-frame chunk's five stage shapes (held to its "
+          f"plain version in [kernel] within {BF16_TOL}): {b1_bf16['ms']:.3f} ms per chunk, "
+          f"bound {b1_bf16['bound_ms']:.3f} ms ({b1_bf16_by}), plain "
+          f"{b1_bf16['plain_ms']:.2f} ms; f32 {per_chunk['ms']:.3f} ms, bound "
+          f"{per_chunk['bound_ms']:.3f} ms | {smi}", flush=True)
+    bf16_req = ex["reqs"]["bf16"]
+
     kernels = [{
         "name": "snake_alias", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": launches,
@@ -2078,7 +2494,16 @@ def main() -> int:
         "launches_by_path": {"svc_infer": launches, "train_step": train_fwd,
                              "train_loop": loop_run["train_fwd"],
                              "validate": loop_run["validate_fwd"],
-                             "audio_in": audio_in["direct"]},
+                             "audio_in": audio_in["direct"],
+                             "bf16_request": bf16_req["counts"]["direct"],
+                             "f32_request": ex["reqs"]["f32"]["counts"]["direct"],
+                             "fast_edges": ex["fast_counts"]["direct"],
+                             "merged_model": ex["merge_counts"]["direct"]},
+        "bf16": b1_bf16 | {
+            "bound_by": b1_bf16_by, "launches": bf16_req["dtypes"].get("bfloat16", 0),
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
+            "per": f"one {CHUNK_FRAMES}-frame chunk at base width, bfloat16, {n_calls} calls "
+                   f"(launches: the --bf16 request's {bf16_req['chunks']} chunks)"},
         "train_step": fwd_per_step | {
             "bound_by": fwd_step_bound_by,
             "per": f"one training step at base width (batch {hp.train.batch_size}, "

@@ -152,6 +152,22 @@ def test_cli_reuses_features_and_blends_with_banks(files, tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("engine", ["salience", "swipe", "yin", "pyin", "dio", "praat"])
-def test_cli_refuses_unported_f0_engines(engine, files):
-    with pytest.raises(SystemExit, match=f"--f0-engine {engine} is not ported"):
-        cli.main(_argv(files, "--device", "cpu", "--f0-engine", engine))
+def test_cli_f0_engine_matches_jax_auto_extract(engine, files, tmp_path, monkeypatch):
+    """--f0-engine <engine> at --device cpu, the PPG and units given: the
+    port CLI's svc_tmp.pit.csv equals the JAX CLI's auto_extract on the
+    same wave (integer Hz, the reference's CSV)."""
+    rng = np.random.default_rng(6)
+    np.save(tmp_path / "ppg.npy", rng.standard_normal((100, N_STATE)).astype(np.float32))
+    np.save(tmp_path / "vec.npy", rng.standard_normal((100, 256)).astype(np.float32))
+    given = ("--ppg", str(tmp_path / "ppg.npy"), "--vec", str(tmp_path / "vec.npy"),
+             "--f0-engine", engine)
+    for side in ("port", "jax"):
+        (tmp_path / side).mkdir()
+    monkeypatch.chdir(tmp_path / "port")
+    cli.main(_argv(files, "--device", "cpu", *given))
+    assert os.path.isfile("svc_out.wav")
+    pit = pipeline.load_csv_pitch("svc_tmp.pit.csv")
+    monkeypatch.chdir(tmp_path / "jax")
+    jcli.auto_extract(jcli.build_argparser().parse_args(_argv(files, *given)))
+    np.testing.assert_array_equal(pit, pipeline.load_csv_pitch("svc_tmp.pit.csv"))
+    assert len(pit) >= 180 and (pit > 0).mean() > 0.5

@@ -57,7 +57,9 @@ def test_kernel_modules_and_sources_stand_alone():
 
     pkg = os.path.join(REPO, "whisper_vits_svc_tpu_torch")
     for module in ("ops/snake_cuda.py", "ops/amp_cuda.py", "nn/amp.py", "nn/snake.py",
-                   "tools/crepe_conv_probe.py"):
+                   "tools/crepe_conv_probe.py", "ops/stft.py", "models/f0_alt.py",
+                   "models/salience.py", "models/swipe.py", "models/dio.py", "models/praat.py",
+                   "models/silero_vad.py", "infer/post.py", "infer/tools.py", "cli/misc.py"):
         assert os.path.isfile(os.path.join(pkg, module)), module
     bad = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|whisper_vits_svc_tpu)(?:\.|\s|$)",
                      re.M)
@@ -70,9 +72,9 @@ def test_kernel_modules_and_sources_stand_alone():
                 assert "torch/extension.h" not in text, name
                 checked += 1
     for script in ("chip_smoke.py", "kink_flips.py", "strip_sweep.py", "sass_counts.py",
-                   "snake_probe.py"):
+                   "snake_probe.py", "train_check_probe.py"):
         assert not bad.search(open(os.path.join(REPO, script), encoding="utf-8").read()), script
-    assert checked >= 30
+    assert checked >= 40
 
 
 def test_entry_points_keep_the_default_kernels(monkeypatch):
@@ -87,6 +89,13 @@ def test_entry_points_keep_the_default_kernels(monkeypatch):
     assert all(b.fused_iter for b in alt.dec.resblocks)
     assert {m.variant for m in alt.modules() if hasattr(m, "variant")} == {"mma"}
     assert list(alt.state_dict()) == list(model.state_dict())
+    # fast_edges: every snake zero-padded and plain, the fused AMP iteration
+    # off (its kernel has exact edges only), the same parameters
+    assert {m.exact_edges for m in model.modules() if hasattr(m, "exact_edges")} == {True}
+    fast = pipeline.build_infer_model(hp, device="cpu", fast_edges=True, amp_fused_iter=True)
+    assert {m.exact_edges for m in fast.modules() if hasattr(m, "exact_edges")} == {False}
+    assert all(not b.fused_iter for b in fast.dec.resblocks)
+    assert list(fast.state_dict()) == list(model.state_dict())
 
 
 def _tiny_hp():
@@ -200,3 +209,41 @@ def test_cli_converts_on_cpu(tmp_path, monkeypatch):
     for name in ("o.wav", "svc_out_pit.wav"):
         sr, audio = wavfile.read(tmp_path / name)
         assert (sr, audio.dtype, audio.shape) == (3200, np.int16, (24 * 8,))
+
+
+def test_misc_entry_points_need_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
+    """The cli.misc entry points that run a model (shift, batch, post) and
+    the new engines refuse to start without CUDA before they read a file;
+    merge, eva and train-retrieval run no model and take no device."""
+    from whisper_vits_svc_tpu_torch.cli import misc
+    from whisper_vits_svc_tpu_torch.models import f0_alt, salience, silero_vad, swipe
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model_args = ["--config", "c.yaml", "--model", "m.pth", "--spk", "s.npy"]
+    for argv in (["shift", *model_args, "--wave", "w.wav"],
+                 ["batch", *model_args, "--folder", "songs"],
+                 ["post", "--ref", "r.wav", "--svc", "s.wav"],
+                 ["post", "--ref", "r.wav", "--svc", "s.wav", "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            misc.main(argv)
+    assert os.listdir(tmp_path) == []
+    x = np.zeros(4000, np.float32)
+    for call in (lambda: f0_alt.yin(x), lambda: f0_alt.pyin(x), lambda: swipe.swipe(x),
+                 lambda: salience.compute_f0_sing_salience(x),
+                 lambda: silero_vad.build_silero_vad(silero_vad.SileroVAD().state_dict())):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    for name in ("merge", "eva", "train-retrieval"):
+        assert "--device" not in _options(misc.ENTRY_POINTS[name])
+
+
+def _options(entry) -> str:
+    """The --help text of a cli.misc entry point."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), pytest.raises(SystemExit):
+        entry(["--help"])
+    return out.getvalue()

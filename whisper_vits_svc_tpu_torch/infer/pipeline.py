@@ -23,21 +23,24 @@ import torch.nn.functional as F
 
 from ..models.convert import from_jax_params, load_jax_ckpt, load_tolerant, torch_load_weights
 from ..models.synthesizer import SynthesizerInfer
-from ..nn.nsf import source_hn_nsf
 from ..utils.config import Config
 from ..utils.device import resolve_device
 
 
 def build_infer_model(hp: Config, device: str | torch.device | None = "cuda",
                       seed: int = 0, snake_variant: str = "direct",
-                      amp_fused_iter: bool = False) -> SynthesizerInfer:
+                      amp_fused_iter: bool = False,
+                      fast_edges: bool = False) -> SynthesizerInfer:
     """The inference graph for `hp`, with random weights made from `seed`
     (JAX initializers), in eval mode on `device` (the card by default).
 
     `snake_variant` ("direct", "strips" or "mma") names the forward snake
     kernel; `amp_fused_iter` runs each AMP dilation iteration of the narrow
     stages as one fused kernel. Both keep the parameters and the function of
-    the default path."""
+    the default path. `fast_edges` zero-pads inside every snake's FIRs (the
+    outermost ~6 samples of each call differ, trimmed by the overlap between
+    chunks) and runs the plain chain in place of the kernels, as the JAX
+    package turns its Pallas snake off for it (infer/pipeline.py:125-156)."""
     dev = resolve_device(device)
     model = SynthesizerInfer(
         ppg_dim=hp.vits.ppg_dim,
@@ -57,6 +60,7 @@ def build_infer_model(hp: Config, device: str | torch.device | None = "cuda",
         n_flows=hp.vits.get("n_flows", 4),
         snake_variant=snake_variant,
         amp_fused_iter=amp_fused_iter,
+        snake_exact_edges=not fast_edges,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
@@ -85,8 +89,7 @@ def pitch2source_bucketed(model: SynthesizerInfer, pit: np.ndarray,
     f0 = torch.zeros((1, tp), dtype=torch.float32)
     f0[0, :t] = torch.from_numpy(np.asarray(pit, np.float32))
     hop = int(math.prod(model.upsample_rates))
-    src = source_hn_nsf(f0.to(device), hop, model.sampling_rate, rng=None)
-    return src[:, : t * hop]
+    return model.pitch2source(f0.to(device))[:, : t * hop]
 
 
 def shift_pitch(pit: np.ndarray, semitones: float) -> np.ndarray:
@@ -124,13 +127,22 @@ def svc_infer(model: SynthesizerInfer, retrieval, spk: np.ndarray, pit: np.ndarr
               ppg: np.ndarray, vec: np.ndarray, hp: Config, noise_scale: float = 1.0,
               seed: int = 0, out_chunk: int = 1000, hop_frame: int = 10,
               return_source: bool = False, chunk_batch: int = 1,
-              device: str | torch.device | None = "cuda"):
+              device: str | torch.device | None = "cuda",
+              compute_dtype: torch.dtype | None = None):
     """Features -> float32 waveform [S] (and the excitation if asked).
 
     spk [spk_dim], pit [T] Hz, ppg [T, ppg_dim], vec [T, vec_dim] at the
     model's frame rate. `model` must be on `device` (the card by default).
     chunk_batch > 1 runs that many chunks per model call, stacked on the
     batch axis.
+
+    compute_dtype=torch.bfloat16 runs the synthesis graph in bfloat16, as
+    the JAX package's _chunk_program does (infer/pipeline.py:71-80): the
+    parameters (weight norm then computed from bfloat16 g and v), the
+    ppg / vec / spk inputs, the prior noise and the excitation, made in
+    float32, are cast; pit and the lengths are not; the waveform comes back
+    as float32. The caller's model is not changed: the cast parameters are
+    swapped in for the call (torch.func.functional_call).
     """
     asked = resolve_device(device)
     dev = next(model.parameters()).device
@@ -146,6 +158,14 @@ def svc_infer(model: SynthesizerInfer, retrieval, spk: np.ndarray, pit: np.ndarr
     plan = _chunk_plan(len_min, out_chunk, hop_frame)
     noise_gen = torch.Generator().manual_seed(seed)
     pieces: list[np.ndarray] = []
+    own = next(model.parameters()).dtype
+    dt = compute_dtype or own
+    run = model
+    if dt != own:
+        cast = {k: v.to(dt) for k, v in model.state_dict().items()}
+
+        def run(*args, **kwargs):
+            return torch.func.functional_call(model, cast, args, kwargs)
     with torch.inference_mode():
         source = pitch2source_bucketed(model, pit, dev)  # [1, S, 1]
         for g0 in range(0, len(plan), chunk_batch):
@@ -164,15 +184,15 @@ def svc_infer(model: SynthesizerInfer, retrieval, spk: np.ndarray, pit: np.ndarr
                 if noise_scale != 0:
                     noise.append(torch.randn((chunk_max, model.inter_channels),
                                              generator=noise_gen))
-            out = model(
-                torch.from_numpy(np.stack(ppg_c)).to(dev),
-                torch.from_numpy(np.stack(vec_c)).to(dev),
+            out = run(
+                torch.from_numpy(np.stack(ppg_c)).to(dev, dt),
+                torch.from_numpy(np.stack(vec_c)).to(dev, dt),
                 torch.from_numpy(np.stack(pit_c)).to(dev),
-                spk_t.expand(len(group), -1),
+                spk_t.expand(len(group), -1).to(dt),
                 torch.tensor(lens, device=dev),
-                torch.stack(src_c),
+                torch.stack(src_c).to(dt),
                 noise_scale,
-                noise=torch.stack(noise).to(dev) if noise else None,
+                noise=torch.stack(noise).to(dev, dt) if noise else None,
             )
             out = out[..., 0].float().cpu().numpy()
             for gi, (cut_s, cut_e, s_out, e_out) in enumerate(group):

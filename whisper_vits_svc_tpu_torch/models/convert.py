@@ -13,9 +13,11 @@ AdamW moments, the MultiSteps accumulator) into a torch AdamW state_dict.
 `from_jax_whisper`, `from_jax_hubert`, `from_jax_crepe` and
 `from_jax_speaker_encoder` are the inverses of the extractors' converters
 (`convert_encoder`, `convert_hubert`, `convert_crepe`,
-`convert_speaker_encoder`). `load_jax_ckpt` reads a JAX `.ckpt` (flax
-msgpack) with plain `msgpack`, imported lazily; `torch_load_weights` reads
-a `.pth` with `weights_only=True`.
+`convert_speaker_encoder`); `from_jax_silero_vad` turns the numpy tree of
+the JAX package's `load_silero_vad` into the port's SileroVAD state_dict.
+`load_jax_ckpt` reads a JAX `.ckpt` (flax msgpack) with plain `msgpack`,
+imported lazily; `torch_load_weights` reads a `.pth` with
+`weights_only=True`; `load_generator` reads the generator of either.
 
 Layouts: JAX Conv1d (K, I, O) -> torch (O, I, K); JAX ConvTranspose1d
 (K, I, O) -> torch (I, O, K); JAX Conv2d (Kh, Kw, I, O) -> torch
@@ -186,6 +188,11 @@ def from_jax_trn_params(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
+def from_jax_generator(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """A JAX generator tree: a training tree (with enc_q) or an export."""
+    return from_jax_trn_params(tree) if "enc_q" in tree else from_jax_params(tree)
+
+
 def from_jax_disc_params(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """JAX Discriminator params {mrd_i, mpd_i, msd} -> the port's
     Discriminator state_dict."""
@@ -295,6 +302,45 @@ def from_jax_speaker_encoder(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
+def _silero_conv(sd: dict, name: str, w, b) -> None:
+    sd[f"{name}.weight"], sd[f"{name}.bias"] = _t(w), _t(b)
+
+
+def _silero_block(sd: dict, name: str, p: Mapping) -> None:
+    """dw_w [C, 5] -> (C, 1, 5); pw_w / proj_w [O, I] -> (O, I, 1)."""
+    _silero_conv(sd, f"{name}.dw_conv", np.asarray(p["dw_w"])[:, None, :], p["dw_b"])
+    _silero_conv(sd, f"{name}.pw_conv", np.asarray(p["pw_w"])[:, :, None], p["pw_b"])
+    if "proj_w" in p:
+        _silero_conv(sd, f"{name}.proj", np.asarray(p["proj_w"])[:, :, None], p["proj_b"])
+
+
+def _silero_conv_bn(sd: dict, name: str, p: Mapping) -> None:
+    _silero_conv(sd, f"{name}.conv", np.asarray(p["w"])[:, :, None], p["b"])
+    sd[f"{name}.bn_scale"], sd[f"{name}.bn_bias"] = _t(p["bn_scale"]), _t(p["bn_bias"])
+
+
+def from_jax_silero_vad(params: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX package's silero tree (models/silero_vad.py::load_silero_vad:
+    BatchNorms folded, the LSTM's two biases summed into `b`) -> the port's
+    SileroVAD state_dict; the summed bias goes to bias_ih, bias_hh is 0."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    sd["stft_basis"] = _t(params["stft_basis"])
+    sd["an_filter"] = _t(params["an_filter"])
+    _silero_block(sd, "first", params["first"])
+    for i, st in enumerate(params["enc"]):
+        _silero_conv_bn(sd, f"encoder.{i}.down", st)
+        _silero_block(sd, f"encoder.{i}.block", st["block"])
+    _silero_conv_bn(sd, "enc_post", params["enc_post"])
+    for layer, p in enumerate(params["lstm"]):
+        sd[f"rnn.weight_ih_l{layer}"] = _t(p["w_ih"])
+        sd[f"rnn.weight_hh_l{layer}"] = _t(p["w_hh"])
+        sd[f"rnn.bias_ih_l{layer}"] = _t(p["b"])
+        sd[f"rnn.bias_hh_l{layer}"] = torch.zeros(len(p["b"]))
+    sd["decoder.weight"] = _t(np.asarray(params["dec_w"])[:, :, None])
+    sd["decoder.bias"] = _t(params["dec_b"])
+    return sd
+
+
 def from_jax_opt_state(tree: Mapping, params_to_sd) -> dict:
     """A JAX optimizer state (`serialization.to_state_dict` of the opt_state
     in a `.ckpt`) -> the port's optimizer entry: a torch AdamW
@@ -362,6 +408,14 @@ def torch_load_weights(path: str):
             f"{path} holds pickled objects besides tensors and plain containers: it "
             f"does not load with torch.load(weights_only=True), and the port loads "
             f"nothing else") from e
+
+
+def load_generator(path: str) -> "OrderedDict[str, torch.Tensor]":
+    """The generator's state_dict of a checkpoint: `model_g` of a reference
+    or port `.pth`/`.pt`, or of a JAX `.ckpt` converted."""
+    if path.endswith((".pth", ".pt")):
+        return torch_load_weights(path)["model_g"]
+    return from_jax_generator(load_jax_ckpt(path)["model_g"])
 
 
 def load_tolerant(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> list[str]:

@@ -15,6 +15,8 @@ torch.Generator. Public layout: spk [B, spk_dim], x [B, T, C], har_source
 `snake_variant` names the forward snake kernel of every SnakeAlias and
 `amp_fused_iter` turns the AMP blocks' fused iteration on (nn/amp.py); both
 are forward-only alternatives of the default path with the same parameters.
+`snake_exact_edges=False` is the JAX package's fast_edges: every snake
+zero-pads inside its FIRs and runs the plain version, on the card too.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ class Generator(nn.Module):
                  resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilation_sizes=((1, 3, 5),) * 3, spk_dim: int = 256,
                  sampling_rate: int = 32000, snake_variant: str = "direct",
-                 amp_fused_iter: bool = False):
+                 amp_fused_iter: bool = False, snake_exact_edges: bool = True):
         super().__init__()
         self.num_kernels = len(resblock_kernel_sizes)
         self.hop = int(math.prod(upsample_rates))
@@ -86,8 +88,9 @@ class Generator(nn.Module):
             else:
                 self.noise_convs.append(Conv1d(1, ch, 1))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
-                self.resblocks.append(AMPBlock(ch, rk, tuple(rd), snake_variant, amp_fused_iter))
-        self.activation_post = SnakeAlias(ch, snake_variant)
+                self.resblocks.append(AMPBlock(ch, rk, tuple(rd), snake_variant, amp_fused_iter,
+                                               snake_exact_edges))
+        self.activation_post = SnakeAlias(ch, snake_variant, snake_exact_edges)
         self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -113,7 +116,7 @@ class Generator(nn.Module):
         if har_source is None:
             har_source = source_hn_nsf(f0_frames, self.hop, self.sampling_rate,
                                        rng=generator if train else None)
-        har = har_source.transpose(1, 2)  # [B, 1, S]
+        har = har_source.transpose(1, 2).to(x.dtype)  # [B, 1, S]
         nk = self.num_kernels
         for i, (up, noise_conv) in enumerate(zip(self.ups, self.noise_convs)):
             x = up(x) + noise_conv(har)

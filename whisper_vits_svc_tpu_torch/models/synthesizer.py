@@ -13,6 +13,7 @@ Public layout: latents [B, T, C], masks [B, T, 1], audio [B, S, 1].
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -22,6 +23,7 @@ from ..nn.attention import RelPosTransformer
 from ..nn.conv import Conv1d
 from ..nn.flow import ResidualCouplingBlock
 from ..nn.grl import SpeakerClassifier
+from ..nn.nsf import source_hn_nsf
 from ..nn.wn import WN
 from ..utils.pitch import f0_to_coarse
 from .generator import Generator
@@ -256,7 +258,8 @@ class SynthesizerInfer(nn.Module):
                  resblock_kernel_sizes=(3, 7, 11),
                  resblock_dilation_sizes=((1, 3, 5),) * 3, sampling_rate: int = 32000,
                  enc_p_layers: int = 6, flow_wn_layers: int = 4, n_flows: int = 4,
-                 snake_variant: str = "direct", amp_fused_iter: bool = False):
+                 snake_variant: str = "direct", amp_fused_iter: bool = False,
+                 snake_exact_edges: bool = True):
         super().__init__()
         self.upsample_rates = tuple(upsample_rates)
         self.sampling_rate = sampling_rate
@@ -269,13 +272,21 @@ class SynthesizerInfer(nn.Module):
         self.dec = Generator(inter_channels, upsample_initial_channel, upsample_rates,
                              upsample_kernel_sizes, resblock_kernel_sizes,
                              resblock_dilation_sizes, spk_dim, sampling_rate,
-                             snake_variant, amp_fused_iter)
+                             snake_variant, amp_fused_iter, snake_exact_edges)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Random weights with the JAX package's initializers."""
         self.enc_p.init_weights(generator)
         self.flow.init_weights(generator)
         self.dec.init_weights(generator)
+
+    def pitch2source(self, f0_frames: torch.Tensor,
+                     rng: torch.Generator | None = None) -> torch.Tensor:
+        """Whole-utterance excitation [B, T*hop, 1] from frame F0 [B, T]; no
+        parameters (reference vits/models.py:245-246). rng=None is the
+        deterministic mode."""
+        hop = int(math.prod(self.upsample_rates))
+        return source_hn_nsf(f0_frames, hop, self.sampling_rate, rng)
 
     def forward(self, ppg: torch.Tensor, vec: torch.Tensor, pit: torch.Tensor,
                 spk: torch.Tensor, ppg_l: torch.Tensor, source: torch.Tensor,

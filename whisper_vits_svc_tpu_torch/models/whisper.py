@@ -111,9 +111,11 @@ class WhisperEncoder(nn.Module):
     """AudioEncoder with the SVC layer cut applied (large-v2 dims by default)."""
 
     def __init__(self, n_mels: int = 80, n_ctx: int = 1500, n_state: int = 1280,
-                 n_head: int = 20, n_layer: int = 24):
+                 n_head: int = 20, n_layer: int = 24,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_state = n_state
+        self.compute_dtype = compute_dtype
         self.conv1 = nn.Conv1d(n_mels, n_state, 3, padding=1)
         self.conv2 = nn.Conv1d(n_state, n_state, 3, stride=2, padding=1)
         self.register_buffer("positional_embedding",
@@ -126,10 +128,19 @@ class WhisperEncoder(nn.Module):
 
         n_frames [B] gives the real mel-frame count per row of zero-padded
         rows: keys beyond ceil(n_frames / 2) are masked (the k=3 conv
-        boundary still reaches the last <= 2 real output frames)."""
-        x = F.gelu(self.conv1(mel.transpose(1, 2)))
-        x = F.gelu(self.conv2(x)).transpose(1, 2)
-        x = x + self.positional_embedding[: x.shape[1]]
+        boundary still reaches the last <= 2 real output frames).
+
+        The mel is cast to `compute_dtype` and the two stem convolutions
+        run in it (weights cast), as in the JAX package, whose first
+        LayerNorm (parameters in float32) takes the blocks back to float32;
+        here the stem's output is cast back."""
+        dt = self.compute_dtype
+        x = mel.to(dt).transpose(1, 2)
+        for conv in (self.conv1, self.conv2):
+            x = F.gelu(F.conv1d(x, conv.weight.to(dt), conv.bias.to(dt), conv.stride,
+                                conv.padding))
+        x = x.transpose(1, 2)
+        x = (x + self.positional_embedding[: x.shape[1]]).to(dt).float()
         key_mask = None
         if n_frames is not None:
             n_keys = (n_frames + 1) // 2  # Conv1d(k=3, s=2, p=1): ceil(n / 2)
@@ -139,11 +150,12 @@ class WhisperEncoder(nn.Module):
         return self.ln_post(x)
 
 
-def load_whisper_encoder(ckpt_path: str, device: str | torch.device | None = "cuda"
-                         ) -> WhisperEncoder:
+def load_whisper_encoder(ckpt_path: str, device: str | torch.device | None = "cuda",
+                         compute_dtype: torch.dtype = torch.float32) -> WhisperEncoder:
     """Reference `large-v2.pt` ({dims, model_state_dict}) -> the encoder with
     the last quarter of its blocks cut (32 -> 24), weights cast to float32,
-    in eval mode on `device` (the card by default)."""
+    in eval mode on `device` (the card by default). `compute_dtype` is the
+    stem's (WhisperEncoder.forward)."""
     dev = resolve_device(device)
     ckpt = torch_load_weights(ckpt_path)
     dims = ckpt["dims"]
@@ -151,7 +163,7 @@ def load_whisper_encoder(ckpt_path: str, device: str | torch.device | None = "cu
     with torch.device("meta"):  # the weights come from the file; no random init
         model = WhisperEncoder(n_mels=dims["n_mels"], n_ctx=dims["n_audio_ctx"],
                                n_state=dims["n_audio_state"], n_head=dims["n_audio_head"],
-                               n_layer=n_layer)
+                               n_layer=n_layer, compute_dtype=compute_dtype)
     keep = set(model.state_dict())
     sd = {k.removeprefix("encoder."): v for k, v in ckpt["model_state_dict"].items()
           if k.startswith("encoder.") and k.removeprefix("encoder.") in keep}

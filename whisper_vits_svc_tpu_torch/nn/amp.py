@@ -27,9 +27,11 @@ def get_padding(kernel_size: int, dilation: int = 1) -> int:
 class AMPBlock(nn.Module):
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilation: tuple[int, ...] = (1, 3, 5), snake_variant: str = "direct",
-                 fused_iter: bool = False):
+                 fused_iter: bool = False, snake_exact_edges: bool = True):
         super().__init__()
-        self.kernel_size, self.dilation, self.fused_iter = kernel_size, tuple(dilation), fused_iter
+        self.kernel_size, self.dilation = kernel_size, tuple(dilation)
+        # the fused kernel has exact edges only, as JAX's pallas_fused_iter
+        self.fused_iter = fused_iter and snake_exact_edges
         self.convs1 = nn.ModuleList(
             Conv1d(channels, channels, kernel_size, dilation=d,
                    padding=get_padding(kernel_size, d), weight_norm=True)
@@ -38,7 +40,7 @@ class AMPBlock(nn.Module):
             Conv1d(channels, channels, kernel_size, padding=get_padding(kernel_size, 1),
                    weight_norm=True)
             for _ in dilation)
-        self.activations = nn.ModuleList(SnakeAlias(channels, snake_variant)
+        self.activations = nn.ModuleList(SnakeAlias(channels, snake_variant, snake_exact_edges)
                                          for _ in range(2 * len(dilation)))
 
     def init_weights(self, generator: torch.Generator) -> None:

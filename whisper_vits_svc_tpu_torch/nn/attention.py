@@ -100,22 +100,26 @@ class MultiHeadAttention(nn.Module):
         def heads(y):  # [B, T, C] -> [B, H, T, Dk]
             return y.view(b, t, h, dk).transpose(1, 2)
 
+        # the products and the softmax run in float32 at least, as the JAX
+        # package's preferred_element_type=float32 einsums do; the weights
+        # are cast back to v's dtype, the output to x's
+        acc = torch.promote_types(x.dtype, torch.float32)
         q = heads(self.conv_q.forward_ntc(x)) * (1.0 / math.sqrt(dk))
         k = heads(self.conv_k.forward_ntc(x))
         v = heads(self.conv_v.forward_ntc(x))
-        scores = q @ k.transpose(-1, -2)
+        scores = q.to(acc) @ k.to(acc).transpose(-1, -2)
         if self.window_size is not None:
             key_rel, w = _effective_window(self.emb_rel_k, t, self.window_size)
-            scores = scores + _band_to_absolute(q @ key_rel.t(), w)
+            scores = scores + _band_to_absolute(q.to(acc) @ key_rel.to(acc).t(), w)
         scores = scores.masked_fill(attn_mask == 0, -1e4)
-        p_attn = F.softmax(scores, dim=-1)
+        p_attn = F.softmax(scores, dim=-1).to(v.dtype)
         if train and self.p_dropout > 0:
             p_attn = dropout(p_attn, self.p_dropout, generator)
-        out = p_attn @ v
+        out = p_attn.to(acc) @ v.to(acc)
         if self.window_size is not None:
             value_rel, w = _effective_window(self.emb_rel_v, t, self.window_size)
-            out = out + _absolute_to_band(p_attn, w) @ value_rel
-        out = out.transpose(1, 2).reshape(b, t, self.channels)
+            out = out + _absolute_to_band(p_attn, w).to(acc) @ value_rel.to(acc)
+        out = out.to(x.dtype).transpose(1, 2).reshape(b, t, self.channels)
         return self.conv_o.forward_ntc(out)
 
 

@@ -183,18 +183,24 @@ class SnakeBeta(nn.Module):
 
 
 class SnakeAlias(nn.Module):
-    """x2 up -> SnakeBeta -> x2 down on [B, C, T] with exact edges.
+    """x2 up -> SnakeBeta -> x2 down on [B, C, T].
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (ops/snake_cuda.py), at every shape. `variant` names the forward kernel:
-    "direct", "strips" or "mma" (the last two forward only)."""
+    With exact edges a CPU tensor takes the plain version and a CUDA tensor
+    launches the kernel (ops/snake_cuda.py), at every shape. `variant` names
+    the forward kernel: "direct", "strips" or "mma" (the last two forward
+    only). exact_edges=False (the JAX package's fast_edges) runs the plain
+    zero-padded chain on any device, as the JAX package runs its jnp chain
+    there; no kernel has those edges."""
 
-    def __init__(self, channels: int, variant: str = "direct"):
+    def __init__(self, channels: int, variant: str = "direct", exact_edges: bool = True):
         super().__init__()
         self.variant = variant
+        self.exact_edges = exact_edges
         self.act = SnakeBeta(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.exact_edges:
+            return snake_alias_fused_cm(x, self.act.alpha, self.act.beta, exact_edges=False)
         from ..ops.snake_cuda import snake_alias
 
         return snake_alias(x, self.act.alpha, self.act.beta, self.variant)

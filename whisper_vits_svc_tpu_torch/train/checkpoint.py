@@ -27,7 +27,7 @@ from typing import Mapping
 import torch
 
 from ..models.convert import (
-    from_jax_disc_params, from_jax_opt_state, from_jax_params, from_jax_trn_params,
+    from_jax_disc_params, from_jax_generator, from_jax_opt_state, from_jax_trn_params,
     load_jax_ckpt, torch_load_weights,
 )
 from .step import TrainState
@@ -61,11 +61,6 @@ def save(path: str, g_state: TrainState, d_state: TrainState, step: int, epoch: 
     os.replace(tmp, path)
 
 
-def _g_params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
-    # an export holds the inference graph only (enc_p, flow, dec)
-    return from_jax_trn_params(tree) if "enc_q" in tree else from_jax_params(tree)
-
-
 def load(path: str) -> dict:
     """A checkpoint as the port's payload: a `.pth`/`.pt` as saved, a JAX
     `.ckpt` converted (parameters, optimizer states, step, epoch, and its
@@ -74,7 +69,7 @@ def load(path: str) -> dict:
         return torch_load_weights(path)
     tree = load_jax_ckpt(path)
     return {
-        "model_g": _g_params_from_jax(tree["model_g"]),
+        "model_g": from_jax_generator(tree["model_g"]),
         "model_d": from_jax_disc_params(tree["model_d"]) if tree.get("model_d") else {},
         "optim_g": (from_jax_opt_state(tree["optim_g"], from_jax_trn_params)
                     if tree.get("optim_g") is not None else None),

@@ -12,7 +12,7 @@ from ..ops.stft import mel_spectrogram, stft_loss_magnitude
 def kl_loss(z, logs_q, m_p, logs_p, total_logdet, z_mask):
     """Flow KL with logdet (vits/losses.py:43-61); the divisor is the
     mask-element count only, as the reference's."""
-    z = z.float()
+    z = z.to(torch.promote_types(z.dtype, torch.float32))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * torch.square(z - m_p) * torch.exp(-2.0 * logs_p)
     kl = torch.sum(kl * z_mask) - torch.sum(total_logdet)
