@@ -254,7 +254,7 @@ CHECK_BATCH, CHECK_FRAMES, CHECK_SLICE_IDS = 2, 100, (0, 61)
 # host: worst gradient 4.03e-3 / 1.08e-3 / 0.93e-3 / 0.94e-3 / 0.52e-3 on
 # 1 / 2 / 4 / 8 / 16 threads, 2.07e-3 against a float64 CPU (the card's own
 # float32 error in that ill-conditioned loss). 8: the card machine's cores,
-# which every passing run of PR 2-7 had by default
+# the thread count that earlier passing runs of this check had by default
 CHECK_CPU_THREADS = 8
 # the JAX package's fused-iteration and strips test shapes
 # (tests/test_snake_fused.py:230-231, :297-298) and odd ones: T no multiple of
@@ -1196,7 +1196,7 @@ F0_VOICING_SHARE = 0.01
 F0_CENTS = 50.0
 # silero speech probabilities, card vs CPU, float32 both: with silero_random's
 # weights the CPU's float32 is 7.9e-5 from float64 on the CPU; the card was
-# 2.14e-4 from the CPU (my chip run, PR 8, H100 80GB HBM3, 700 W)
+# 2.14e-4 from the CPU (measured on one H100 80GB HBM3, 700 W)
 VAD_ATOL = 1e-3
 MERGE_RATIO = 0.3
 
