@@ -138,6 +138,27 @@ Phases (any failure exits non-zero without the final line):
    (1e-4) and apply_vad_mask on the song; merge and eva through cli.misc,
    the merged model through one chunk.
 
+14. streaming: the snake kernel against its plain version at the five stage
+   shapes of the streaming window (100-frame blocks after 50 frames of
+   context: [1,160,750] .. [1,10,48000]); StreamingSvc at full base width
+   over 30 blocks of seeded features (wall per push, 91 snake launches a
+   block, one profiled block, the card against the CPU over 4 blocks and
+   blocks 1-3 against one forward on their window with the whole
+   utterance's excitation, 5e-5 each); then audio in and out: the
+   streaming extractors at the published widths (seeded random
+   checkpoints) and push_audio over a 10 s synthetic voice in 1 s blocks,
+   lag 4 (wall and latency per block, each stage's share, 91 launches a
+   synthesis push, a streaming CREPE's flush path equal to the offline
+   decode, the first block's features card vs CPU at [audio-in]'s bounds).
+
+15. training with train.bf16_discriminator at base width (ms per step
+   beside [train]'s float32 D, peak memory, the D scores within 0.05 mean
+   relative error of a float32 D with the same parameters, float32
+   gradients, parameters and AdamW states, convolution kernels by dtype);
+   then `train` for 2 loop steps without a process group and through
+   hp.dist as a one-rank NCCL group on cuda:0, the two runs' states equal
+   to the bit.
+
 Then prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -149,6 +170,7 @@ import ctypes
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -168,14 +190,18 @@ from whisper_vits_svc_tpu_torch.data.dataset import (
 )
 from whisper_vits_svc_tpu_torch.infer import pipeline
 from whisper_vits_svc_tpu_torch.infer import retrieval as retrieval_mod
+from whisper_vits_svc_tpu_torch.infer import stream_extract
 from whisper_vits_svc_tpu_torch.infer.retrieval import DummyRetrieval
+from whisper_vits_svc_tpu_torch.infer.stream import StreamingSvc
 from whisper_vits_svc_tpu_torch.models import crepe as crepe_mod
 from whisper_vits_svc_tpu_torch.models import hubert as hubert_mod
 from whisper_vits_svc_tpu_torch.models import speaker_encoder as spk_mod
 from whisper_vits_svc_tpu_torch.models import whisper as whisper_mod
 from whisper_vits_svc_tpu_torch.models.synthesizer import slice_segments
+from whisper_vits_svc_tpu_torch.nn.nsf import source_hn_nsf
 from whisper_vits_svc_tpu_torch.nn.snake import snake_alias_fused_cm
 from whisper_vits_svc_tpu_torch.ops import amp_cuda, snake_cuda
+from whisper_vits_svc_tpu_torch.parallel import ddp as tddp
 from whisper_vits_svc_tpu_torch.train import checkpoint as tckpt
 from whisper_vits_svc_tpu_torch.train import loop as tloop
 from whisper_vits_svc_tpu_torch.train import step as tstep
@@ -923,6 +949,7 @@ def profile(fn) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     kinds = {kind: 0.0 for kind, _ in KERNEL_KINDS} | {"other": 0.0}
     counts = dict.fromkeys(kinds, 0)
+    names: dict = {}
     for e in prof.events():
         if (e.device_type != torch.autograd.DeviceType.CUDA
                 or getattr(e, "is_user_annotation", False)):
@@ -930,10 +957,11 @@ def profile(fn) -> dict:
         kind = kernel_kind(e.name)
         kinds[kind] += e.time_range.elapsed_us() / 1e3
         counts[kind] += 1
+        names[e.name] = names.get(e.name, 0) + 1
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15,
                                       max_name_column_width=48)
     return dict(table=table, wall_ms=wall_us / 1e3, busy_ms=sum(kinds.values()),
-                kinds=kinds, counts=counts)
+                kinds=kinds, counts=counts, names=names)
 
 
 def snake_param_indices(model) -> list[int]:
@@ -1225,15 +1253,16 @@ def silero_random(seed: int) -> dict:
 
 
 @contextlib.contextmanager
-def snake_dtypes():
-    """Count the direct snake kernel's launches by the dtype of their input
-    (wrapping the wrapper, whose count it leaves as it is)."""
+def snake_dtypes(key=lambda x: str(x.dtype).removeprefix("torch.")):
+    """Count the direct snake kernel's launches by the dtype of their input,
+    or by another `key` of it (wrapping the wrapper, whose count it leaves
+    as it is)."""
     orig = snake_cuda.snake_alias_cuda
     seen: dict = {}
 
     def wrapped(x, alpha, beta):
-        key = str(x.dtype).removeprefix("torch.")
-        seen[key] = seen.get(key, 0) + 1
+        k = key(x)
+        seen[k] = seen.get(k, 0) + 1
         return orig(x, alpha, beta)
 
     snake_cuda.snake_alias_cuda = wrapped
@@ -2248,6 +2277,460 @@ def report_audio_in(ai: dict, smi: str) -> None:
     print(f"[audio-in] the phase took {ai['phase_s']:.1f} s | {smi}", flush=True)
 
 
+# streaming: 100-frame blocks (1 s) after 50 frames (0.5 s) of context
+STREAM_BLOCK, STREAM_CONTEXT = 100, 50
+STREAM_BLOCKS = 30
+STREAM_CPU_BLOCKS = 4          # blocks held card against CPU
+STREAM_WINDOW_BLOCKS = (1, 2, 3)  # blocks held to one forward on their window
+STREAM_AUDIO_SECONDS = 10.0
+STREAM_AUDIO_BLOCK = 16000     # 1 s of 16 kHz audio a push
+STREAM_LAG = 4
+# JAX's snake sends T that is no multiple of its 128-lane tile to
+# _kernel_padded (ops/pallas_snake.py:217, :708): 750, 3000, 12000 and 24000
+# of the streaming window's stages
+PADDED_REPLACES = "whisper_vits_svc_tpu/ops/pallas_snake.py:708"
+
+
+def _percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def stream_phase(base_hp, device="cuda", n_snakes: int = 91,
+                 blocks: int = STREAM_BLOCKS) -> dict:
+    """StreamingSvc at hp's width on seeded features, noise_scale=0: two
+    warm-up blocks, then `blocks` blocks with every count set to 0 before
+    them and read after (n_snakes launches a block, no other kernel), the
+    wall of each push; one more block profiled; the first STREAM_CPU_BLOCKS
+    blocks on the CPU with the same weights; STREAM_WINDOW_BLOCKS held to
+    one SynthesizerInfer forward on their [context | block] window with the
+    whole utterance's excitation sliced at it."""
+    hp = config_from_dict(base_hp)
+    hop, sr = hp.data.hop_length, hp.data.sampling_rate
+    model = pipeline.build_infer_model(hp, device=device, seed=0)
+    spk, pit, ppg, vec = features(hp, blocks * STREAM_BLOCK, seed=40)
+
+    def run(m, dev, n_blocks):
+        svc = StreamingSvc(m, spk, hp, STREAM_BLOCK, STREAM_CONTEXT, noise_scale=0.0,
+                           device=dev)
+        outs, walls = [], []
+        for k in range(n_blocks):
+            sl = slice(k * STREAM_BLOCK, (k + 1) * STREAM_BLOCK)
+            sync(dev)
+            t0 = time.perf_counter()
+            outs.append(svc.push(ppg[sl], vec[sl], pit[sl]))
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+        return outs, walls, svc
+
+    run(model, device, 2)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with snake_dtypes(key=lambda x: "padded" if x.shape[-1] % 128 else "tiled") as by_tile:
+        outs, walls, svc = run(model, device, blocks)
+    counts = read_counts()
+    check(counts["direct"] == n_snakes * blocks and counts["bwd"] == counts["strips"]
+          == counts["mma"] == counts["amp"] == 0,
+          f"stream: {counts} launches in {blocks} blocks, expected {n_snakes} direct a block")
+    audio = np.concatenate(outs)
+    rms = float(np.sqrt(np.mean(np.square(audio))))
+    check(audio.shape == (blocks * STREAM_BLOCK * hop,) and bool(np.isfinite(audio).all())
+          and rms > 1e-3, f"stream output {audio.shape}, rms {rms}")
+    peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
+    prof = None
+    if torch.device(device).type == "cuda":
+        sl = slice(0, STREAM_BLOCK)
+        prof = profile(lambda: svc.push(ppg[sl], vec[sl], pit[sl]))
+
+    # the tight check: block k against one forward on its window, with the
+    # whole utterance's excitation (its cumulative phase stays below ~400
+    # cycles over these blocks, where float32 keeps it within 5e-5)
+    whole = source_hn_nsf(torch.from_numpy(pit)[None].to(device), hop, sr)
+    window_err = 0.0
+    for k in STREAM_WINDOW_BLOCKS:
+        s0, e0 = k * STREAM_BLOCK - STREAM_CONTEXT, (k + 1) * STREAM_BLOCK
+        with torch.inference_mode():
+            out = model(*(torch.from_numpy(a[s0:e0])[None].to(device) for a in (ppg, vec, pit)),
+                        torch.from_numpy(spk)[None].to(device), torch.tensor([e0 - s0],
+                                                                             device=device),
+                        whole[:, s0 * hop : e0 * hop], 0.0)
+        window_err = max(window_err, max_err(outs[k], out[0, STREAM_CONTEXT * hop :, 0].cpu()))
+    check(window_err <= CARD_VS_CPU_ATOL,
+          f"stream block against its window's forward: max abs err {window_err}")
+
+    cpu_model = pipeline.build_infer_model(hp, device="cpu", seed=0)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_outs, cpu_walls, _ = run(cpu_model, "cpu", STREAM_CPU_BLOCKS)
+    cpu_err = max(max_err(a, b) for a, b in zip(outs, cpu_outs))
+    check(cpu_err <= CARD_VS_CPU_ATOL, f"stream card vs CPU: max abs err {cpu_err}")
+    block_s = STREAM_BLOCK * hop / sr
+    return dict(walls=walls, prof=prof, counts=counts, blocks=blocks, block_s=block_s,
+                window_err=window_err, cpu_err=cpu_err, cpu_walls=cpu_walls, peak=peak,
+                rms=rms, by_tile=dict(by_tile))
+
+
+@contextlib.contextmanager
+def stream_probes(device):
+    """Wrap the streaming stages from outside and time each call (the card
+    synchronised after it): whisper's window, HuBERT's window, CREPE's
+    probabilities and its whole advance (probabilities and the host
+    trellis), and synthesis (StreamingSvc.push, whose snake launches it
+    counts). Yields the record of totals and per-call lists."""
+    targets = [(stream_extract.StreamingWhisper, "push", "whisper"),
+               (stream_extract.StreamingHubert, "push", "hubert"),
+               (stream_extract.StreamingCrepe, "_obs_log", "crepe_probs"),
+               (stream_extract.StreamingCrepe, "_advance", "crepe"),
+               (StreamingSvc, "push", "synthesis")]
+    orig = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+    rec = {key: [] for _, _, key in targets} | {"synthesis_snakes": []}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            n0 = snake_cuda.launches
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(device)
+            rec[key].append(time.perf_counter() - t0)
+            if key == "synthesis":
+                rec["synthesis_snakes"].append(snake_cuda.launches - n0)
+            return out
+        return wrapper
+
+    for (owner, name, key), (_, _, fn) in zip(targets, orig):
+        setattr(owner, name, timed(fn, key))
+    try:
+        yield rec
+    finally:
+        for owner, name, fn in orig:
+            setattr(owner, name, fn)
+
+
+def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
+                       n_snakes: int = 91, seconds: float = STREAM_AUDIO_SECONDS) -> dict:
+    """Audio in, audio out, block by block: the streaming extractors at
+    `widths` (seeded random checkpoints in the reference layouts, through
+    the port's loaders) and StreamingSvc.push_audio on a synthetic voice in
+    STREAM_AUDIO_BLOCK blocks, then the flush. Checks the output length
+    (2x the 16 kHz samples), n_snakes launches per synthesis push, a
+    StreamingCrepe's flush path against the offline decode of the same
+    audio, and the first block's features on the card against the CPU."""
+    root = Path(tempfile.mkdtemp(prefix="svc_stream_audio_"))
+    phase_t0 = time.perf_counter()
+    try:
+        ckpts = write_extractor_checkpoints(root, widths, device)
+        hp = config_from_dict(base_hp)
+
+        def extractors(dev):
+            return (whisper_mod.load_whisper_encoder(ckpts["whisper"]["path"], dev),
+                    hubert_mod.load_hubert_soft(ckpts["hubert"]["path"], dev),
+                    crepe_mod.load_crepe(ckpts["crepe"]["path"], device=dev))
+
+        models = extractors(device)
+        model = pipeline.build_infer_model(hp, device=device, seed=0)
+        spk = features(hp, 1, seed=42)[0]
+        voice = synthetic_voice(seconds, 16000, seed=43, f0=180.0)
+        blocks = [voice[s : s + STREAM_AUDIO_BLOCK]
+                  for s in range(0, len(voice), STREAM_AUDIO_BLOCK)]
+        check(all(len(b) == STREAM_AUDIO_BLOCK for b in blocks),
+              "the voice is no whole number of blocks")
+
+        def stream(n_blocks):
+            svc = StreamingSvc(model, spk, hp, STREAM_BLOCK, STREAM_CONTEXT, device=device)
+            svc.attach_extractor(stream_extract.StreamingExtractor(
+                *models, block_samples=STREAM_AUDIO_BLOCK, lag_frames=STREAM_LAG,
+                device=device))
+            outs, walls = [], []
+            for b in blocks[:n_blocks]:
+                sync(device)
+                t0 = time.perf_counter()
+                outs.append(svc.push_audio(b))
+                sync(device)
+                walls.append(time.perf_counter() - t0)
+            return svc, outs, walls
+
+        stream(1)  # warm-up: cuDNN plans, first launches
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with stream_probes(device) as rec:
+            svc, outs, walls = stream(len(blocks))
+            blocks_rec = {k: list(v) for k, v in rec.items()}  # the blocks, not the flush
+            sync(device)
+            t0 = time.perf_counter()
+            outs.append(svc.flush_audio())
+            sync(device)
+            flush_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
+        audio = np.concatenate(outs)
+        rms = float(np.sqrt(np.mean(np.square(audio))))
+        check(audio.shape == (2 * len(voice),) and bool(np.isfinite(audio).all()) and rms > 1e-3,
+              f"stream audio out {audio.shape} for {len(voice)} samples in, rms {rms}")
+        pushes = len(rec["synthesis"])
+        check(all(n == n_snakes for n in rec["synthesis_snakes"])
+              and counts["direct"] == n_snakes * pushes and counts["bwd"] == counts["strips"]
+              == counts["mma"] == counts["amp"] == 0,
+              f"stream audio: {counts} launches in {pushes} synthesis pushes "
+              f"({rec['synthesis_snakes']}), expected {n_snakes} direct a push")
+
+        # a StreamingCrepe over the same blocks, finished: its path against
+        # the offline decode (the same 64-frame batches, the trellis on the
+        # device), and against the offline default of 512-frame batches
+        sc = stream_extract.StreamingCrepe(models[2], device=device)
+        for b in blocks:
+            sc.push(b)
+        sc.finish()
+        path = sc.decode(0, sc.head + 1)
+        frames = crepe_mod.frame_audio(voice, stream_extract.HOP)
+        offline = {bs: crepe_mod.viterbi_decode(crepe_mod.viterbi_observations(
+            crepe_mod.crepe_probabilities(models[2], frames, batch_size=bs)), device=device)
+            for bs in (stream_extract._CREPE_BATCH, 512)}
+        check(len(path) == len(frames) and np.array_equal(path, offline[64]),
+              f"the streaming CREPE's flush path differs from the offline path at "
+              f"{np.flatnonzero(path != offline[64])[:10]} of {len(frames)} frames")
+        path_diff_512 = int(np.sum(path != offline[512]))
+
+        # the first block's features on the card against the CPU
+        cpu_ex = stream_extract.StreamingExtractor(*extractors("cpu"),
+                                                   block_samples=STREAM_AUDIO_BLOCK,
+                                                   lag_frames=STREAM_LAG, device="cpu")
+        card_ex = stream_extract.StreamingExtractor(*models, block_samples=STREAM_AUDIO_BLOCK,
+                                                    lag_frames=STREAM_LAG, device=device)
+        got, ref = card_ex.push(blocks[0]), cpu_ex.push(blocks[0])
+        rows = card_ex.crepe._frame_rows(list(range(card_ex.crepe.head + 1)))
+        errs = dict(ppg=max_err(got[0], ref[0]), vec=max_err(got[1], ref[1]),
+                    crepe_probs=max_err(crepe_mod.crepe_probabilities(models[2], rows, 64),
+                                        crepe_mod.crepe_probabilities(cpu_ex.crepe.model, rows,
+                                                                      64)))
+        for key, err in errs.items():
+            check(err <= AUDIO_IN_ATOL[key], f"stream audio card vs CPU: {key} max abs err "
+                                             f"{err:.3e} above {AUDIO_IN_ATOL[key]}")
+        pit_equal = float(np.mean(got[2] == ref[2]))
+        return dict(walls=walls, flush_s=flush_s, rec=blocks_rec, counts=counts, pushes=pushes,
+                    peak=peak, rms=rms, errs=errs, pit_equal=pit_equal,
+                    crepe_frames=len(frames), path_diff_512=path_diff_512,
+                    block_s=STREAM_AUDIO_BLOCK / 16000, seconds=seconds,
+                    phase_s=time.perf_counter() - phase_t0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_bf16d_phase(base_hp, device="cuda", n_snakes: int = 91) -> dict:
+    """One base-width step with train.bf16_discriminator: a warm-up step and
+    TIMED_STEPS timed steps (n_snakes forward and backward launches each,
+    finite metrics), peak memory, one profiled step's convolution kernels by
+    dtype; the D scores on one batch's real segments against a float32 D
+    with the same parameters; every gradient finite, every parameter and
+    AdamW state float32."""
+    hp = config_from_dict(base_hp)
+    hp.train["bf16_discriminator"] = True
+    g_state, d_state = tstep.init_train_states(hp, seed=0, device=device)
+    check(d_state.model.compute_dtype == torch.bfloat16, "bf16_discriminator not applied")
+    step = tstep.make_train_step(hp, g_state, d_state)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batches = [train_batch(hp, hp.train.batch_size, TRAIN_FRAMES, seed=60 + i)
+               for i in range(TIMED_STEPS + 2)]
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = []
+    for i, batch in enumerate(batches[: TIMED_STEPS + 1]):
+        sync(device)
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        sync(device)
+        if i:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        check(all(np.isfinite(v) for v in metrics.values()), f"bf16 D step {i}: {metrics}")
+    counts = read_counts()
+    n_steps = TIMED_STEPS + 1
+    check(counts["direct"] == counts["bwd"] == n_snakes * n_steps,
+          f"bf16 D: {counts} launches in {n_steps} steps, expected {n_snakes} each a step")
+    peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
+
+    g_grads, d_grads, _ = tstep.loss_and_grads(hp, g_state.model, d_state.model, batches[-1],
+                                               gen)
+    for grads, state in ((g_grads, g_state), (d_grads, d_state)):
+        for grad, p in zip(grads, state.params):
+            check(grad.dtype == p.dtype == torch.float32 and bool(torch.isfinite(grad).all()),
+                  f"bf16 D: a gradient of {tuple(p.shape)} is {grad.dtype} or not finite")
+            st = state.optimizer.state[p]
+            check(st["exp_avg"].dtype == st["exp_avg_sq"].dtype == torch.float32,
+                  "bf16 D: an AdamW state is not float32")
+    del g_grads, d_grads
+
+    d32 = tstep.build_models(config_from_dict(base_hp))[1].to(device)
+    d32.load_state_dict(d_state.model.state_dict())
+    x = torch.from_numpy(batches[-1]["audio"][:, : hp.data.segment_size]).to(device)
+    with torch.no_grad():
+        rel = [float((s32 - s16).abs().mean() / (s32.abs().mean() + 1e-8))
+               for (_, s32), (_, s16) in zip(d32(x), d_state.model(x))]
+    check(max(rel) < 0.05, f"bf16 D scores against float32: mean relative errors {rel}")
+    del d32
+    prof = None
+    if torch.device(device).type == "cuda":
+        prof = profile(lambda: step(batches[-1], gen))
+        conv = {n: c for n, c in prof["names"].items() if kernel_kind(n) == "conv"}
+        prof["conv_by_dtype"] = {
+            "bf16": sum(c for n, c in conv.items() if "bf16" in n.lower()),
+            "other": sum(c for n, c in conv.items() if "bf16" not in n.lower())}
+    return dict(step_ms=step_ms, peak=peak, rel=rel, counts=counts, prof=prof,
+                n_steps=n_steps, batch=hp.train.batch_size)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_ddp_phase(base_hp, device="cuda", n_snakes: int = 91, steps: int = 2) -> dict:
+    """`train` for `steps` loop steps on a synthetic dataset, twice without
+    a process group and once through hp.dist as a one-rank group (NCCL on
+    the card, gloo on the CPU), from the same seed, with PyTorch's
+    deterministic algorithms (cuDNN's default convolution algorithms sum
+    their gradients in an order that changes from run to run): n_snakes
+    forward and backward launches a step in each, the checkpoint written by
+    rank 0, and the runs' parameters, AdamW states and accumulators equal to
+    the bit (the second run without a group shows that the loop repeats
+    itself, so that a difference would be the group's)."""
+    root = Path(tempfile.mkdtemp(prefix="svc_train_ddp_"))
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        train_fl, valid_fl, _ = write_dataset(config_from_dict(base_hp), root / "data", seed=7)
+        runs = {}
+        for name, dist in (("single", None), ("again", None),
+                           ("ddp", dict(coordinator_address=f"localhost:{_free_port()}",
+                                        num_processes=1, process_id=0))):
+            hp = config_from_dict(base_hp)
+            hp.data.update(training_files=train_fl, validation_files=valid_fl)
+            hp["log"] = config_from_dict(dict(
+                info_interval=1, eval_interval=10**6, save_interval=1, num_audio=0,
+                pth_dir=str(root / "chkpt"), log_dir=str(root / "logs"), keep_ckpts=0))
+            if dist is not None:
+                hp["dist"] = config_from_dict(dist)
+            reset_counts()
+            sync(device)
+            t0 = time.perf_counter()
+            g, d, step = tloop.train(hp, name, max_epochs=1, max_steps=steps, device=device)
+            sync(device)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            check(step == steps and counts["direct"] == counts["bwd"] == n_snakes * steps,
+                  f"{name}: step {step}, {counts} launches, expected {n_snakes} each a step")
+            check(os.listdir(root / "chkpt" / name) == [f"{name}_0001.pth"],
+                  f"{name}: checkpoints {os.listdir(root / 'chkpt' / name)}")
+            runs[name] = dict(g=g, d=d, wall=wall, counts=counts,
+                              device=str(next(g.model.parameters()).device),
+                              world=tddp.world_size(), backend=(
+                                  torch.distributed.get_backend() if tddp.is_initialized()
+                                  else None))
+        tddp.shutdown()
+        check(runs["ddp"]["world"] == 1 and runs["ddp"]["backend"] == (
+            "nccl" if torch.device(device).type == "cuda" else "gloo"),
+            f"the one-rank group: {runs['ddp']['world']} ranks, {runs['ddp']['backend']}")
+        for other in ("again", "ddp"):
+            bad = (state_mismatches(runs["single"]["g"], runs[other]["g"])
+                   + state_mismatches(runs["single"]["d"], runs[other]["d"]))
+            check(not bad, f"{other}: states differ from the first run without a group: "
+                           f"{bad[:8]} ({len(bad)})")
+        return dict(runs={k: dict(wall=v["wall"], counts=v["counts"], backend=v["backend"],
+                                  device=v["device"]) for k, v in runs.items()}, steps=steps)
+    finally:
+        tddp.shutdown()
+        torch.use_deterministic_algorithms(deterministic[0], warn_only=True)
+        torch.backends.cudnn.deterministic = deterministic[1]
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def report_stream(st: dict, kst: dict, smi: str) -> None:
+    walls = [1e3 * w for w in st["walls"]]
+    print(f"[stream] {st['blocks']} blocks of {STREAM_BLOCK} frames ({st['block_s']:.2f} s) "
+          f"after {STREAM_CONTEXT} frames of context at base width, noise_scale 0: wall per "
+          f"push median {np.median(walls):.2f} ms, p90 {_percentile(walls, 90):.2f} ms, "
+          f"min {min(walls):.2f}, max {max(walls):.2f} (realtime x"
+          f"{st['block_s'] / (np.median(walls) / 1e3):.2f} at the median); snake launches "
+          f"{st['counts']['direct']} ({st['counts']['direct'] // st['blocks']} a block); "
+          f"peak device memory {st['peak'] / 2**30:.2f} GiB | {smi}", flush=True)
+    print(f"[stream] card vs CPU over {STREAM_CPU_BLOCKS} blocks: max abs err "
+          f"{st['cpu_err']:.3e} (tolerance {CARD_VS_CPU_ATOL}; CPU "
+          f"{1e3 * np.median(st['cpu_walls']):.1f} ms a block); blocks {STREAM_WINDOW_BLOCKS} "
+          f"against one forward on their window with the whole utterance's excitation: max "
+          f"abs err {st['window_err']:.3e} (tolerance {CARD_VS_CPU_ATOL}) | {smi}", flush=True)
+    print(f"[stream] B1 at the window's stage shapes ([kernel-stream]): "
+          f"{kst['ms']:.3f} ms a block, bound {kst['bound_ms']:.3f} ms, plain "
+          f"{kst['plain_ms']:.2f} ms | {smi}", flush=True)
+    prof = st["prof"]
+    if prof is not None:
+        print(prof["table"], flush=True)
+        print(f"[stream] one profiled block: wall {prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['busy_ms']:.2f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), "
+              f"profiler on; device ms by kind "
+              + json.dumps({k: round(v, 3) for k, v in prof["kinds"].items()})
+              + "; kernels by kind " + json.dumps(prof["counts"]) + f" | {smi}", flush=True)
+
+
+def report_stream_audio(sa: dict, smi: str) -> None:
+    walls = [1e3 * w for w in sa["walls"]]
+    rec = sa["rec"]
+    share = {k: 1e3 * sum(rec[k]) / len(walls) for k in ("whisper", "hubert", "synthesis")}
+    share["crepe_probs"] = 1e3 * sum(rec["crepe_probs"]) / len(walls)
+    share["crepe_trellis_host"] = 1e3 * (sum(rec["crepe"]) - sum(rec["crepe_probs"])) / len(walls)
+    share["other"] = float(np.mean(walls)) - sum(share.values())
+    print(f"[stream-audio] {sa['seconds']:.1f} s voice in {len(walls)} blocks of "
+          f"{sa['block_s']:.2f} s (lag {STREAM_LAG} frames) at the published widths: wall per "
+          f"block median {np.median(walls):.2f} ms, p90 {_percentile(walls, 90):.2f} ms, first "
+          f"{walls[0]:.2f} ms; latency per block {1e3 * sa['block_s']:.0f} ms of buffering + "
+          f"the wall = {1e3 * sa['block_s'] + np.median(walls):.2f} ms at the median; flush "
+          f"{1e3 * sa['flush_s']:.2f} ms; mean ms a block by stage "
+          + json.dumps({k: round(v, 2) for k, v in share.items()})
+          + f"; {sa['pushes']} synthesis pushes, snake launches {sa['counts']['direct']}; "
+          f"peak device memory {sa['peak'] / 2**30:.2f} GiB | {smi}", flush=True)
+    print(f"[stream-audio] the streaming CREPE's flush path equals the offline decode on all "
+          f"{sa['crepe_frames']} frames (64-frame batches; {sa['path_diff_512']} frames differ "
+          f"from 512-frame batches); first block card vs CPU max abs err "
+          + ", ".join(f"{k} {v:.3e} ({AUDIO_IN_ATOL[k]})" for k, v in sa["errs"].items())
+          + f", emitted pitch equal on {100 * sa['pit_equal']:.1f}% of frames; the phase took "
+          f"{sa['phase_s']:.1f} s | {smi}", flush=True)
+
+
+def report_train_bf16d(bd: dict, f32_step_ms: list, smi: str) -> None:
+    prof = bd["prof"]
+    print(f"[train-bf16d] bf16_discriminator, batch {bd['batch']} x {TRAIN_FRAMES} frames: "
+          f"{np.mean(bd['step_ms']):.2f} ms per step (steps "
+          f"{[round(t, 2) for t in bd['step_ms']]}) against the float32 D's "
+          f"{np.mean(f32_step_ms):.2f} ms ([train], this call); peak device memory "
+          f"{bd['peak'] / 2**30:.2f} GiB; D scores against float32 with the same parameters, "
+          f"mean relative error {max(bd['rel']):.4f} worst of {len(bd['rel'])} (bound 0.05); "
+          f"every gradient finite, parameters and AdamW states float32; snake launches fwd "
+          f"{bd['counts']['direct']} bwd {bd['counts']['bwd']} in {bd['n_steps']} steps | {smi}",
+          flush=True)
+    if prof is not None:
+        print(prof["table"], flush=True)
+        print(f"[train-bf16d] one profiled step: wall {prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['busy_ms']:.2f} ms ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%); "
+              f"device ms by kind " + json.dumps({k: round(v, 3) for k, v in prof["kinds"].items()})
+              + "; convolution kernels by dtype " + json.dumps(prof["conv_by_dtype"])
+              + f" | {smi}", flush=True)
+
+
+def report_train_ddp(dd: dict, smi: str) -> None:
+    r = dd["runs"]
+    print(f"[train-ddp] train() for {dd['steps']} loop steps at base width, deterministic "
+          f"algorithms: without a process group {1e3 * r['single']['wall']:.2f} / "
+          f"{1e3 * r['again']['wall']:.2f} ms, as a one-rank {r['ddp']['backend']} group "
+          f"on {r['ddp']['device']} through hp.dist {1e3 * r['ddp']['wall']:.2f} ms (set-up, "
+          f"the steps and a checkpoint each); parameters, AdamW states and accumulators equal "
+          f"to the bit; "
+          f"snake launches fwd {r['ddp']['counts']['direct']} bwd {r['ddp']['counts']['bwd']} "
+          f"| {smi}", flush=True)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -2483,11 +2966,37 @@ def main() -> int:
           f"{per_chunk['bound_ms']:.3f} ms | {smi}", flush=True)
     bf16_req = ex["reqs"]["bf16"]
 
+    # streaming: B1 at the window's stage shapes, StreamingSvc on features,
+    # then audio in and out through the streaming extractors
+    stream_stages = stage_shapes(hp, 1, STREAM_BLOCK + STREAM_CONTEXT)
+    stream_rows = [check_kernel(shape, torch.float32, seed=800 + i)
+                   for i, (shape, _) in enumerate(stream_stages)]
+    for r in stream_rows:
+        print("[kernel-stream] " + json.dumps(r), flush=True)
+    per_block, stream_bound_by = per_call_sum(stream_rows, stream_stages)
+    padded_stages = [(shape, calls) for shape, calls in stream_stages if shape[-1] % 128]
+    per_block_padded, padded_bound_by = per_call_sum(stream_rows, padded_stages)
+    print(f"[kernel-stream] per {STREAM_BLOCK + STREAM_CONTEXT}-frame streaming window, f32, "
+          f"{n_calls} calls: {json.dumps(per_block)}; the {sum(c for _, c in padded_stages)} "
+          f"calls whose T is no multiple of 128: {json.dumps(per_block_padded)} | {smi}",
+          flush=True)
+    st = stream_phase(BASE_MODEL_CONFIG)
+    report_stream(st, per_block, smi)
+    sa = stream_audio_phase(BASE_MODEL_CONFIG)
+    report_stream_audio(sa, smi)
+
+    # training with the bf16 discriminator, and through a one-rank process group
+    bd = train_bf16d_phase(BASE_MODEL_CONFIG)
+    report_train_bf16d(bd, tr["step_ms"], smi)
+    dd = train_ddp_phase(BASE_MODEL_CONFIG)
+    report_train_ddp(dd, smi)
+    ddp_counts = dd["runs"]["ddp"]["counts"]
+
     kernels = [{
         "name": "snake_alias", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows + fwd_train_rows + val_rows
-                           if r["dtype"] == "float32"),
+                           + stream_rows if r["dtype"] == "float32"),
         "ms": per_chunk["ms"], "plain_ms": per_chunk["plain_ms"],
         "bound_ms": per_chunk["bound_ms"], "bound_by": bound_by, "library_ms": None,
         "per": f"one {CHUNK_FRAMES}-frame chunk at base width, float32, {n_calls} calls",
@@ -2498,7 +3007,11 @@ def main() -> int:
                              "bf16_request": bf16_req["counts"]["direct"],
                              "f32_request": ex["reqs"]["f32"]["counts"]["direct"],
                              "fast_edges": ex["fast_counts"]["direct"],
-                             "merged_model": ex["merge_counts"]["direct"]},
+                             "merged_model": ex["merge_counts"]["direct"],
+                             "stream": st["counts"]["direct"],
+                             "stream_audio": sa["counts"]["direct"],
+                             "train_bf16d": bd["counts"]["direct"],
+                             "train_ddp": ddp_counts["direct"]},
         "bf16": b1_bf16 | {
             "bound_by": b1_bf16_by, "launches": bf16_req["dtypes"].get("bfloat16", 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
@@ -2512,6 +3025,10 @@ def main() -> int:
             "bound_by": fwd_val_bound_by,
             "per": f"one validation utterance at base width ({val_frames} frames), float32, "
                    f"{n_calls} calls"},
+        "stream": per_block | {
+            "bound_by": stream_bound_by, "launches": st["counts"]["direct"],
+            "per": f"one streaming block ({STREAM_BLOCK} + {STREAM_CONTEXT} frames) at base "
+                   f"width, float32, {n_calls} calls"},
     }, {
         "name": "snake_alias_bwd", "route": "cuda", "source": SOURCE_BWD,
         "replaces": REPLACES_BWD, "launches": train_bwd,
@@ -2523,7 +3040,25 @@ def main() -> int:
         "launches_by_path": {"svc_infer": infer_bwd, "train_step": train_bwd,
                              "train_loop": loop_run["counts"]["bwd"],
                              "validate": loop_run["validate_bwd"],
-                             "audio_in": audio_in["bwd"]},
+                             "audio_in": audio_in["bwd"],
+                             "stream": st["counts"]["bwd"], "stream_audio": sa["counts"]["bwd"],
+                             "train_bf16d": bd["counts"]["bwd"],
+                             "train_ddp": ddp_counts["bwd"]},
+    }, {
+        # the same Hopper kernel, at the shapes the JAX package sends to
+        # _kernel_padded: the streaming window's stages whose T is no
+        # multiple of 128
+        "name": "snake_alias (padded)", "route": "cuda", "source": SOURCE,
+        "replaces": PADDED_REPLACES, "launches": st["by_tile"].get("padded", 0),
+        "max_abs_err": max(r["max_abs_err"] for r in stream_rows
+                           if r["shape"][-1] % 128),
+        "ms": per_block_padded["ms"], "plain_ms": per_block_padded["plain_ms"],
+        "bound_ms": per_block_padded["bound_ms"], "bound_by": padded_bound_by,
+        "library_ms": None,
+        "per": f"one streaming block's {sum(c for _, c in padded_stages)} calls with T "
+               f"no multiple of 128, base width, float32",
+        "launches_by_path": {"stream": st["by_tile"].get("padded", 0),
+                             "stream_tiled": st["by_tile"].get("tiled", 0)},
     }]
     chunk = f"one {CHUNK_FRAMES}-frame chunk at base width, float32"
     fused_run = alt_runs["fused"]

@@ -311,7 +311,7 @@ def test_viterbi_decode_matches_jax(T):
     logits = rng.standard_normal((T, pcrepe.PITCH_BINS)).astype(np.float32) * 3
     ex = np.exp(logits - logits.max(axis=1, keepdims=True))
     probs = ex / ex.sum(axis=1, keepdims=True)
-    got = pcrepe.viterbi_decode(probs)
+    got = pcrepe.viterbi_decode(probs, device="cpu")
     np.testing.assert_array_equal(got, jcrepe.viterbi_decode(probs))
     if T == 1:
         assert got[0] == int(np.argmax(probs[0]))
@@ -321,8 +321,10 @@ def test_viterbi_takes_the_first_index_on_ties():
     """Flat probabilities tie every path: the first argmax everywhere,
     bin 0, as JAX's argmax gives."""
     probs = np.full((6, pcrepe.PITCH_BINS), 1.0 / pcrepe.PITCH_BINS, np.float32)
-    np.testing.assert_array_equal(pcrepe.viterbi_decode(probs), jcrepe.viterbi_decode(probs))
-    np.testing.assert_array_equal(pcrepe.viterbi_decode(probs), np.zeros(6, np.int64))
+    np.testing.assert_array_equal(pcrepe.viterbi_decode(probs, device="cpu"),
+                                  jcrepe.viterbi_decode(probs))
+    np.testing.assert_array_equal(pcrepe.viterbi_decode(probs, device="cpu"),
+                                  np.zeros(6, np.int64))
 
 
 @pytest.mark.parametrize("win", [3, 5, 7])

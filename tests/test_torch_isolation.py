@@ -59,7 +59,9 @@ def test_kernel_modules_and_sources_stand_alone():
     for module in ("ops/snake_cuda.py", "ops/amp_cuda.py", "nn/amp.py", "nn/snake.py",
                    "tools/crepe_conv_probe.py", "ops/stft.py", "models/f0_alt.py",
                    "models/salience.py", "models/swipe.py", "models/dio.py", "models/praat.py",
-                   "models/silero_vad.py", "infer/post.py", "infer/tools.py", "cli/misc.py"):
+                   "models/silero_vad.py", "infer/post.py", "infer/tools.py", "cli/misc.py",
+                   "infer/stream.py", "infer/stream_extract.py", "parallel/ddp.py",
+                   "utils/rng.py"):
         assert os.path.isfile(os.path.join(pkg, module)), module
     bad = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|whisper_vits_svc_tpu)(?:\.|\s|$)",
                      re.M)
@@ -209,6 +211,53 @@ def test_cli_converts_on_cpu(tmp_path, monkeypatch):
     for name in ("o.wav", "svc_out_pit.wav"):
         sr, audio = wavfile.read(tmp_path / name)
         assert (sr, audio.dtype, audio.shape) == (3200, np.int16, (24 * 8,))
+
+
+def test_streaming_and_ddp_need_cuda_unless_asked_for_cpu(monkeypatch):
+    """StreamingSvc, the streaming extractors, the offline Viterbi decode and
+    the data-parallel set-up (and the loop through it) refuse to run without
+    CUDA unless asked for the CPU, before any rendezvous; a model on the CPU
+    with the card asked for is refused too."""
+    from whisper_vits_svc_tpu_torch.infer import stream_extract as se
+    from whisper_vits_svc_tpu_torch.infer.stream import StreamingSvc
+    from whisper_vits_svc_tpu_torch.models import crepe, hubert, whisper
+    from whisper_vits_svc_tpu_torch.parallel import ddp
+    from whisper_vits_svc_tpu_torch.train import loop
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hp = _tiny_hp()
+    model = pipeline.build_infer_model(hp, device="cpu")
+    spk = np.zeros(4, np.float32)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            StreamingSvc(model, spk, hp, block_frames=4, context_frames=2, device=device)
+    stream = StreamingSvc(model, spk, hp, block_frames=4, context_frames=2, device="cpu")
+    z = np.zeros((3, 4), np.float32)
+    assert stream.push(z, z, np.full(3, 200.0, np.float32)).shape == (24,)
+
+    w = whisper.WhisperEncoder(n_state=8, n_head=2, n_layer=1)
+    h = hubert.HubertSoft(n_layers=1)
+    c = crepe.Crepe("tiny")
+    for make in (lambda d: se.StreamingWhisper(w, device=d),
+                 lambda d: se.StreamingHubert(h, 16000, device=d),
+                 lambda d: se.StreamingCrepe(c, device=d),
+                 lambda d: se.StreamingExtractor(w, h, c, device=d)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make("cuda")
+        make("cpu")
+    probs = np.full((3, crepe.PITCH_BINS), 1.0 / crepe.PITCH_BINS, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        crepe.viterbi_decode(probs)
+    assert crepe.viterbi_decode(probs, device="cpu").shape == (3,)
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ddp.initialize_distributed("localhost:1", 2, 0)
+    assert not ddp.is_initialized()
+    assert ddp.initialize_distributed(None, device="cpu") == torch.device("cpu")
+    hp["dist"] = dict(coordinator_address="localhost:1", num_processes=2, process_id=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loop.train(hp, "t")
+    assert not ddp.is_initialized()
 
 
 def test_misc_entry_points_need_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):

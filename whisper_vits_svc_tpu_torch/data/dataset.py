@@ -8,9 +8,11 @@ reference vits/data_utils.py:17-325, vits_extend/dataloader.py:7-37).
   * each epoch, items are length-bucketed (the reference's [150, 300, 450],
     dataloader.py:13, scaled from the segment length) and every batch is
     zero-padded to its bucket's upper bound;
-  * the buckets are shuffled from the epoch's seed; the port trains on one
-    device, so the reference's rank::num_replicas sharding (data_utils.py:289)
-    is the single replica's identity.
+  * the buckets are shuffled from the epoch's seed, each cut to a multiple
+    of the global batch (num_replicas x batch_size) and each rank keeps
+    rank::num_replicas of it (the reference's DistributedBucketSampler,
+    data_utils.py:289): rank r's j-th batch is rows [r*B, (r+1)*B) of the
+    j-th global batch.
 
 The draws come from `np.random.default_rng` in the JAX package's order, so
 the batch order, the crops and the padded batches equal the JAX package's to
@@ -138,17 +140,19 @@ def boundaries_for(hp_data) -> tuple[int, ...]:
 class BucketBatcher:
     """Epoch iterator of padded numpy batches.
 
-    Buckets by usable frames (the reference DistributedBucketSampler at one
-    replica: items outside (b0, b_last] are dropped, epoch-seeded shuffle,
-    pad-repeat to a multiple of the batch), then pads every example to its
-    bucket's upper boundary.
+    Buckets by usable frames (the reference DistributedBucketSampler: items
+    outside (b0, b_last] are dropped, epoch-seeded shuffle, pad-repeat to a
+    multiple of the global batch, rank::num_replicas subsample), then pads
+    every example to its bucket's upper boundary. Every rank draws the same
+    numbers in the same order, so the ranks agree on the bucket of each step.
     """
 
     def __init__(self, dataset: SvcDataset, batch_size: int, boundaries,
-                 seed: int = 1234):
+                 num_replicas: int = 1, rank: int = 0, seed: int = 1234):
         self.ds = dataset
         self.batch_size = batch_size
         self.boundaries = list(boundaries)
+        self.num_replicas, self.rank = num_replicas, rank
         self.seed = seed
         self.buckets = [[] for _ in range(len(self.boundaries) - 1)]
         for i, length in enumerate(dataset.lengths):
@@ -165,8 +169,9 @@ class BucketBatcher:
                 continue
             pad_to = min(self.boundaries[b + 1], self.ds.max_frames)
             ids = list(rng.permutation(len(bucket)))
-            rem = -len(ids) % self.batch_size
+            rem = -len(ids) % (self.num_replicas * self.batch_size)
             ids = ids + ids * (rem // len(ids)) + ids[: rem % len(ids)]
+            ids = ids[self.rank :: self.num_replicas]
             for j in range(len(ids) // self.batch_size):
                 chunk = [bucket[k] for k in ids[j * self.batch_size : (j + 1) * self.batch_size]]
                 all_batches.append((chunk, pad_to))
@@ -208,4 +213,6 @@ class BucketBatcher:
         return out
 
     def batches_per_epoch(self) -> int:
-        return sum(-(-len(bucket) // self.batch_size) for bucket in self.buckets)
+        total = self.num_replicas * self.batch_size
+        return sum(-(-len(bucket) // total) * total // self.num_replicas // self.batch_size
+                   for bucket in self.buckets)

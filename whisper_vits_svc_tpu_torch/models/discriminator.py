@@ -7,6 +7,12 @@ in is [B, T, 1] (the JAX layout); feature maps are torch NCHW / NCT, scores
 4-way frequency fold, the MSD's merged groups) compute the same values as
 the plain forms used here. Parameter names are the reference state_dict's:
 `MRD.discriminators.{i}`, `MPD.discriminators.{i}`, `MSD`.
+
+`compute_dtype=torch.bfloat16` (hp.train.bf16_discriminator) runs the conv
+stacks in bfloat16 as the JAX package does: the input is cast (after the
+MRD's STFT front end, which stays float32), each weight-normed kernel is
+computed in float32 and cast, and the feature maps and scores come back as
+float32. Parameters and their gradients stay float32.
 """
 
 from __future__ import annotations
@@ -19,13 +25,18 @@ from ..nn.conv import Conv1d, Conv2d
 from ..ops.stft import mrd_magnitude
 
 
+def _to_f32(fmap: list, score: torch.Tensor):
+    return [f.float() for f in fmap], score.float()
+
+
 class DiscriminatorP(nn.Module):
     """Period discriminator (reference vits_decoder/mpd.py:6-44)."""
 
     def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
-                 lrelu_slope: float = 0.2):
+                 lrelu_slope: float = 0.2, compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.period, self.lrelu_slope = period, lrelu_slope
+        self.compute_dtype = compute_dtype
         pad = (kernel_size // 2, 0)
         chs = [1, 64, 128, 256, 512]
         convs = [Conv2d(chs[i], chs[i + 1], (kernel_size, 1), (stride, 1), pad)
@@ -36,6 +47,8 @@ class DiscriminatorP(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x [B, 1, T] -> (fmaps [B, C, T/p, p], score [B, n])."""
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         b, c, t = x.shape
         if t % self.period:
             x = F.pad(x, (0, self.period - t % self.period), mode="reflect")
@@ -47,16 +60,18 @@ class DiscriminatorP(nn.Module):
             fmap.append(x)
         x = self.conv_post(x)
         fmap.append(x)
-        return fmap, x.flatten(1)
+        return _to_f32(fmap, x.flatten(1))
 
 
 class DiscriminatorR(nn.Module):
     """Resolution discriminator on the window-less STFT magnitude
     (reference vits_decoder/mrd.py:6-46)."""
 
-    def __init__(self, resolution, lrelu_slope: float = 0.2):
+    def __init__(self, resolution, lrelu_slope: float = 0.2,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.resolution, self.lrelu_slope = tuple(resolution), lrelu_slope
+        self.compute_dtype = compute_dtype
         self.convs = nn.ModuleList([
             Conv2d(1, 32, (3, 9), (1, 1), (1, 4)),
             Conv2d(32, 32, (3, 9), (1, 2), (1, 4)),
@@ -69,14 +84,17 @@ class DiscriminatorR(nn.Module):
     def forward(self, x: torch.Tensor):
         """x [B, 1, T] -> (fmaps [B, C, bins, frames'], score [B, n])."""
         n_fft, hop, win = self.resolution
-        h = mrd_magnitude(x[:, 0], n_fft, hop, win).transpose(1, 2)[:, None]  # [B,1,bins,frames]
+        # the STFT front end stays float32 (its magnitudes cancel)
+        h = mrd_magnitude(x[:, 0].float(), n_fft, hop, win).transpose(1, 2)[:, None]
+        if self.compute_dtype is not None:  # [B, 1, bins, frames]
+            h = h.to(self.compute_dtype)
         fmap = []
         for conv in self.convs:
             h = F.leaky_relu(conv(h), self.lrelu_slope)
             fmap.append(h)
         h = self.conv_post(h)
         fmap.append(h)
-        return fmap, h.flatten(1)
+        return _to_f32(fmap, h.flatten(1))
 
 
 class ScaleDiscriminator(nn.Module):
@@ -87,8 +105,9 @@ class ScaleDiscriminator(nn.Module):
              (256, 1024, 41, 4, 20, 64), (1024, 1024, 41, 4, 20, 256),
              (1024, 1024, 5, 1, 2, 1))  # in, out, kernel, stride, padding, groups
 
-    def __init__(self):
+    def __init__(self, compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.convs = nn.ModuleList(
             Conv1d(i, o, k, stride=s, padding=p, groups=g, weight_norm=True)
             for i, o, k, s, p, g in self.SPECS)
@@ -96,27 +115,31 @@ class ScaleDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x [B, 1, T] -> (fmaps [B, C, T'], score [B, n])."""
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         fmap = []
         for conv in self.convs:
             x = F.leaky_relu(conv(x), 0.1)
             fmap.append(x)
         x = self.conv_post(x)
         fmap.append(x)
-        return fmap, x.flatten(1)
+        return _to_f32(fmap, x.flatten(1))
 
 
 class MultiResolutionDiscriminator(nn.Module):
-    def __init__(self, resolutions, lrelu_slope: float = 0.2):
+    def __init__(self, resolutions, lrelu_slope: float = 0.2,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.discriminators = nn.ModuleList(DiscriminatorR(r, lrelu_slope) for r in resolutions)
+        self.discriminators = nn.ModuleList(DiscriminatorR(r, lrelu_slope, compute_dtype)
+                                            for r in resolutions)
 
 
 class MultiPeriodDiscriminator(nn.Module):
     def __init__(self, periods, kernel_size: int = 5, stride: int = 3,
-                 lrelu_slope: float = 0.2):
+                 lrelu_slope: float = 0.2, compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.discriminators = nn.ModuleList(
-            DiscriminatorP(p, kernel_size, stride, lrelu_slope) for p in periods)
+            DiscriminatorP(p, kernel_size, stride, lrelu_slope, compute_dtype) for p in periods)
 
 
 class Discriminator(nn.Module):
@@ -125,12 +148,14 @@ class Discriminator(nn.Module):
     def __init__(self, mrd_resolutions=((1024, 120, 600), (2048, 240, 1200),
                                         (4096, 480, 2400), (512, 50, 240)),
                  mpd_periods=(2, 3, 5, 7, 11), mpd_kernel_size: int = 5,
-                 mpd_stride: int = 3, lrelu_slope: float = 0.2):
+                 mpd_stride: int = 3, lrelu_slope: float = 0.2,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.MRD = MultiResolutionDiscriminator(mrd_resolutions, lrelu_slope)
+        self.compute_dtype = compute_dtype
+        self.MRD = MultiResolutionDiscriminator(mrd_resolutions, lrelu_slope, compute_dtype)
         self.MPD = MultiPeriodDiscriminator(mpd_periods, mpd_kernel_size, mpd_stride,
-                                            lrelu_slope)
-        self.MSD = ScaleDiscriminator()
+                                            lrelu_slope, compute_dtype)
+        self.MSD = ScaleDiscriminator(compute_dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Random weights with the JAX package's initializers."""

@@ -31,6 +31,7 @@ from ..nn.amp import AMPBlock
 from ..nn.conv import Conv1d, ConvTranspose1d
 from ..nn.nsf import source_hn_nsf
 from ..nn.snake import SnakeAlias
+from ..utils import rng
 
 
 class SpeakerAdapter(nn.Module):
@@ -110,7 +111,7 @@ class Generator(nn.Module):
         """har_source, or f0_frames to compute it here (random phases and
         noise from `generator` when train). train=True perturbs the latent."""
         if train:
-            x = x + torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            x = x + rng.randn(x.shape, generator, device=x.device, dtype=x.dtype)
         x = self.adapter(x, spk)
         x = mish(self.conv_pre(x.transpose(1, 2)))  # [B, C, T]
         if har_source is None:

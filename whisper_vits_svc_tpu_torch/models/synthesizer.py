@@ -25,6 +25,7 @@ from ..nn.flow import ResidualCouplingBlock
 from ..nn.grl import SpeakerClassifier
 from ..nn.nsf import source_hn_nsf
 from ..nn.wn import WN
+from ..utils import rng
 from ..utils.pitch import f0_to_coarse
 from .generator import Generator
 
@@ -42,7 +43,7 @@ def _sample(m: torch.Tensor, logs: torch.Tensor, mask: torch.Tensor, noise_scale
     if noise_scale == 0:
         return m * mask
     if noise is None:
-        noise = torch.randn(m.shape, generator=generator, device=m.device, dtype=m.dtype)
+        noise = rng.randn(m.shape, generator, device=m.device, dtype=m.dtype)
     return (m + noise * torch.exp(logs) * noise_scale) * mask
 
 
@@ -138,7 +139,7 @@ def rand_slice_segments_with_pitch(z: torch.Tensor, pitch: torch.Tensor,
     Returns (z [B, seg, C], pitch [B, seg], ids [B])."""
     if ids is None:
         ids_str_max = (lengths - segment_size + 1).float()
-        u = torch.rand(z.shape[0], generator=generator, device=z.device)
+        u = rng.rand((z.shape[0],), generator, device=z.device)
         ids = (u * ids_str_max).long()
     return slice_segments(z, ids, segment_size), slice_segments(pitch, ids, segment_size), ids
 
@@ -211,7 +212,7 @@ class SynthesizerTrn(nn.Module):
         inputs' device)."""
 
         def randn(x):
-            return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            return rng.randn(x.shape, generator, device=x.device, dtype=x.dtype)
 
         if perturb:  # data perturbation (models.py:184-185)
             ppg = ppg + randn(ppg)
@@ -240,8 +241,8 @@ class SynthesizerTrn(nn.Module):
         (deterministic excitation, no latent noise). Draws come from
         `generator`. -> audio [B, T*hop, 1]."""
         if perturb:
-            ppg = ppg + torch.randn(ppg.shape, generator=generator, device=ppg.device,
-                                    dtype=ppg.dtype) * 0.0001
+            ppg = ppg + rng.randn(ppg.shape, generator, device=ppg.device,
+                                  dtype=ppg.dtype) * 0.0001
         z_p, _, _, ppg_mask, _ = self.enc_p(ppg, ppg_l, vec, f0_to_coarse(pit), noise_scale,
                                             generator=generator)
         z, _ = self.flow(z_p, ppg_mask, g=spk, reverse=True)

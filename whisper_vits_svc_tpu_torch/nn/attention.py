@@ -22,13 +22,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import rng
 from .conv import Conv1d, LayerNorm
 
 
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout as flax's nn.Dropout: keep with probability 1 - p,
     scale kept values by 1 / (1 - p); the mask is drawn from `generator`."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = rng.rand(x.shape, generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

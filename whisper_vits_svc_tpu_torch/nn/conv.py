@@ -26,6 +26,18 @@ def wn_weight(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return g * v / (norm + 1e-12)
 
 
+def _cpu_bf16_safe(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *args):
+    """conv(x, w, b, *args). A bfloat16 convolution on the CPU runs in
+    float32 on the bfloat16 values and is rounded once, as cuDNN's is:
+    oneDNN's bfloat16 convolutions return wrong values for inputs narrower
+    than the kernel's padded reach (the MRD's width-2 rows, kernel 9,
+    stride 2) and non-finite weight gradients for the MSD's grouped
+    width-2 layer."""
+    if x.dtype != torch.bfloat16 or x.device.type != "cpu":
+        return conv(x, w, b, *args)
+    return conv(x.float(), w.float(), None if b is None else b.float(), *args).to(x.dtype)
+
+
 def uniform_init_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
@@ -78,8 +90,11 @@ class Conv1d(nn.Module):
         return wn_weight(self.weight_g, self.weight_v) if self.weight_norm else self.weight
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.kernel(), self.bias, self.stride, self.padding,
-                        self.dilation, self.groups)
+        """The kernel (weight norm computed in the parameters' dtype) and the
+        bias are cast to the input's dtype, as the JAX package casts them."""
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return _cpu_bf16_safe(F.conv1d, x, self.kernel().to(x.dtype), bias, self.stride,
+                              self.padding, self.dilation, self.groups)
 
     def forward_ntc(self, x: torch.Tensor) -> torch.Tensor:
         """[B, T, C] in and out; a 1x1 conv is one matmul, no transposes."""
@@ -107,8 +122,10 @@ class Conv2d(nn.Module):
         uniform_init_(self.bias, fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, wn_weight(self.weight_g, self.weight_v), self.bias, self.stride,
-                        self.padding)
+        """Weight norm in the parameters' dtype, then the kernel and the bias
+        cast to the input's dtype (JAX nn/conv.py:373)."""
+        return _cpu_bf16_safe(F.conv2d, x, wn_weight(self.weight_g, self.weight_v).to(x.dtype),
+                              self.bias.to(x.dtype), self.stride, self.padding)
 
 
 class ConvTranspose1d(nn.Module):

@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from ..utils import rng as draws
+
 # Fixed harmonic-merge weights of the reference (vits_decoder/nsf.py:378-381).
 MERGE_W = (0.2942, -0.2243, 0.0033, -0.0056, -0.0020, -0.0046,
            0.0221, -0.0083, -0.0241, -0.0036, -0.0581)
@@ -54,7 +56,7 @@ def sine_harmonics(f0_frames: torch.Tensor, hop: int, sampling_rate: int,
     phase_end = phase_end - torch.floor(phase_end)
 
     if rng is not None:
-        rand_ini = torch.rand((b, 1, dim), generator=rng, device=dev)
+        rand_ini = draws.rand((b, 1, dim), rng, device=dev)
         rand_ini[:, :, 0] = 0.0  # fundamental pinned (nsf.py:235)
         frame_base = frame_base + rand_ini
 
@@ -70,7 +72,7 @@ def sine_harmonics(f0_frames: torch.Tensor, hop: int, sampling_rate: int,
     out = sines * uv
     if rng is not None:
         noise_amp = uv * noise_std + (1.0 - uv) * sine_amp / 3.0
-        out = out + noise_amp * torch.randn(sines.shape, generator=rng, device=dev)
+        out = out + noise_amp * draws.randn(sines.shape, rng, device=dev)
     if return_phase:
         return out, phase_end
     return out

@@ -1,5 +1,5 @@
 """The training loop (JAX whisper_vits_svc_tpu/train/loop.py; reference
-vits_extend/train.py:62-311) on one device.
+vits_extend/train.py:62-311), on one device or data-parallel.
 
 Per epoch: the exponential LR decay, validation at `eval_interval`, the
 epoch's bucketed batches through a prefetch thread into the GAN step, the
@@ -15,7 +15,16 @@ rate scaled by `nan_lr_factor`, at most `nan_max_restarts` times.
 Random draws come from one torch.Generator on the device seeded from
 `train.seed` (re-seeded on each auto-resume), validation's from one seeded
 generator per utterance; the batcher draws from numpy as the JAX package
-does. The JAX package's mesh and compile cache have no counterpart here.
+does. The JAX package's compile cache has no counterpart here.
+
+Data parallelism (`hp.dist`: coordinator_address, num_processes,
+process_id; parallel/ddp.py) in place of the JAX package's mesh: the process
+group is set up first, rank r trains on cuda:r (the CPU under gloo) on
+rank::num_replicas of every bucket, and every rank takes the global batch's
+step. Only rank 0 validates, writes the logs and saves checkpoints; the
+ranks meet after each save, so that a NaN auto-resume on any rank reloads
+the checkpoint rank 0 wrote. Without a coordinator address the loop runs
+one process and no collective, as before.
 """
 
 from __future__ import annotations
@@ -29,8 +38,8 @@ import torch
 from ..data.dataset import BucketBatcher, SvcDataset, boundaries_for
 from ..data.prefetch import prefetch
 from ..ops.stft import linear_spectrogram
+from ..parallel import ddp
 from ..utils.config import Config
-from ..utils.device import resolve_device
 from . import checkpoint as ckpt
 from .losses import mel_l1_loss
 from .step import init_train_states, make_train_step, set_learning_rate
@@ -79,8 +88,12 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
           device: str | torch.device | None = "cuda"):
     """Train `name` on hp.data.training_files; returns (g_state, d_state,
     step). Runs on the card unless device="cpu". profile_dir: a
-    torch.profiler Chrome trace of steps 3 .. 2 + profile_steps."""
-    dev = resolve_device(device)
+    torch.profiler Chrome trace of steps 3 .. 2 + profile_steps (rank 0)."""
+    dist_cfg = hp.get("dist") or {}
+    dev = ddp.initialize_distributed(dist_cfg.get("coordinator_address"),
+                                     dist_cfg.get("num_processes", 1),
+                                     dist_cfg.get("process_id", 0), device)
+    primary = ddp.is_primary()
     seed = hp.train.seed
     g_state, d_state = init_train_states(hp, seed=seed, device=dev)
     train_step = make_train_step(hp, g_state, d_state)
@@ -102,12 +115,14 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
 
     dataset = SvcDataset(hp.data.training_files, hp.data)
     batcher = BucketBatcher(dataset, hp.train.batch_size, boundaries=boundaries_for(hp.data),
-                            seed=seed)
+                            num_replicas=ddp.world_size(), rank=ddp.rank(), seed=seed)
     val_ds = SvcDataset(hp.data.validation_files, hp.data)
 
     pth_dir = os.path.join(hp.log.pth_dir, name)
-    os.makedirs(pth_dir, exist_ok=True)
-    writer = TrainWriter(os.path.join(hp.log.log_dir, name), hp.data.sampling_rate)
+    writer = None
+    if primary:
+        os.makedirs(pth_dir, exist_ok=True)
+        writer = TrainWriter(os.path.join(hp.log.log_dir, name), hp.data.sampling_rate)
 
     end_epoch = max_epochs or hp.train.epochs
     lr0, gamma = hp.train.learning_rate, hp.train.lr_decay
@@ -129,14 +144,14 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
                 set_learning_rate(g_state, lr)
                 set_learning_rate(d_state, lr / hp.train.accum_step)
 
-                if epoch % hp.log.eval_interval == 0 and len(val_ds):
+                if primary and epoch % hp.log.eval_interval == 0 and len(val_ds):
                     mel = validate(hp, g_state.model, val_ds, writer, step)
                     print(f"epoch {epoch} | validation mel {mel:.4f} | step {step}")
 
                 t_last, samples_done = time.perf_counter(), 0
                 metrics = None
                 for batch in prefetch(batcher.epoch_batches(epoch), depth=2):
-                    if profile_dir is not None and step == 2:
+                    if primary and profile_dir is not None and step == 2:
                         profiler = _start_profiler(dev)
                     real_samples = int(batch["spec_l"].sum()) * hop
                     metrics = train_step(batch, generator)
@@ -147,8 +162,9 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
                     samples_done += real_samples
                     if step % hp.log.info_interval == 0:
                         metrics = {k: float(v) for k, v in metrics.items()}
-                        _check_finite(metrics, guard)
+                        _check_finite(metrics, guard)  # the global metrics: one verdict
                         last_healthy_step = step
+                    if primary and step % hp.log.info_interval == 0:
                         dt = time.perf_counter() - t_last
                         metrics["audio_seconds_per_s"] = samples_done / sr / dt
                         metrics["steps_per_s"] = hp.log.info_interval / dt
@@ -169,10 +185,12 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
                         # the current parameters: no non-finite checkpoint is written
                         _check_finite(metrics, guard)
                         last_healthy_step = step
-                    path = os.path.join(pth_dir, f"{name}_{epoch:04d}.pth")
-                    ckpt.save(path, g_state, d_state, step, epoch, hp.get("raw", ""))
-                    print(f"Saved checkpoint to: {path}")
-                    ckpt.clean_checkpoints(pth_dir, name, hp.log.keep_ckpts)
+                    if primary:
+                        path = os.path.join(pth_dir, f"{name}_{epoch:04d}.pth")
+                        ckpt.save(path, g_state, d_state, step, epoch, hp.get("raw", ""))
+                        print(f"Saved checkpoint to: {path}")
+                        ckpt.clean_checkpoints(pth_dir, name, hp.log.keep_ckpts)
+                    ddp.barrier()  # the checkpoint is on disk before any rank reads it
 
                 if max_steps is not None and step >= max_steps:
                     break
@@ -197,7 +215,8 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
     finally:  # a divergence too: the trace window ends, the writer flushes
         if profiler is not None:
             _stop_profiler(profiler, profile_dir, dev)
-        writer.close()
+        if writer is not None:
+            writer.close()
     return g_state, d_state, step
 
 

@@ -1,6 +1,11 @@
 """GAN + flow losses of the SVC trainer (JAX train/losses.py; reference
 vits/losses.py and the loss assembly of vits_extend/train.py:189-247).
-Latents are [B, T, C], waveforms [B, T], masks [B, T, 1]."""
+Latents are [B, T, C], waveforms [B, T], masks [B, T, 1].
+
+Under data parallelism (`glob`, a parallel.ddp.GlobalBatch) the flow KL and
+the MR-STFT spectral convergence return this rank's share of the global
+batch's term: the shares sum to the global term over the ranks, and so do
+their gradients. Neither term is a mean of per-rank losses."""
 
 from __future__ import annotations
 
@@ -9,14 +14,16 @@ import torch
 from ..ops.stft import mel_spectrogram, stft_loss_magnitude
 
 
-def kl_loss(z, logs_q, m_p, logs_p, total_logdet, z_mask):
+def kl_loss(z, logs_q, m_p, logs_p, total_logdet, z_mask, glob=None):
     """Flow KL with logdet (vits/losses.py:43-61); the divisor is the
-    mask-element count only, as the reference's."""
+    mask-element count only, as the reference's: the global batch's under
+    `glob`."""
     z = z.to(torch.promote_types(z.dtype, torch.float32))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * torch.square(z - m_p) * torch.exp(-2.0 * logs_p)
     kl = torch.sum(kl * z_mask) - torch.sum(total_logdet)
-    return kl / torch.sum(z_mask)
+    count = torch.sum(z_mask)
+    return kl / (count if glob is None else glob.sum(count))
 
 
 def generator_adversarial_loss(disc_fake):
@@ -40,15 +47,34 @@ def discriminator_adversarial_loss(disc_fake, disc_real):
     return loss / len(disc_fake)
 
 
-def multi_resolution_stft_loss(fake, real, resolutions):
+def spectral_convergence(x_mag, y_mag, glob=None):
+    """||Y - X||_F / ||Y||_F over the batch. Under `glob` the norms are the
+    global batch's, sqrt of the ranks' summed squares (Y is data), and this
+    rank's share is ||Y_r - X_r|| / ||Y|| * (||Y_r - X_r|| / ||Y - X||),
+    the factor detached: the shares sum to the global ratio, and the
+    gradient of a share is the global ratio's gradient for this rank's rows.
+    With one rank the factor is exactly 1 (sqrt(a * a) == a in binary
+    floating point) and the share is the local ratio to the bit."""
+    num = torch.linalg.vector_norm(y_mag - x_mag)
+    den = torch.linalg.vector_norm(y_mag)
+    if glob is None:
+        return num / den
+    num_all = torch.sqrt(glob.sum(num.square()))
+    den_all = torch.sqrt(glob.sum(den.square()))
+    return num / den_all * (num.detach() / num_all)
+
+
+def multi_resolution_stft_loss(fake, real, resolutions, glob=None):
     """(sc_loss, mag_loss) averaged over resolutions (stft_loss.py:97-135):
-    sc = ||Y| - |X||_F / ||Y||_F, mag = L1 of the logs."""
+    sc = ||Y| - |X||_F / ||Y||_F, mag = L1 of the logs; under `glob` both are
+    this rank's shares of the global batch's."""
     sc_loss = mag_loss = 0.0
     for n_fft, hop, win in resolutions:
         x_mag = stft_loss_magnitude(fake, n_fft, hop, win)
         y_mag = stft_loss_magnitude(real, n_fft, hop, win)
-        sc_loss = sc_loss + torch.linalg.vector_norm(y_mag - x_mag) / torch.linalg.vector_norm(y_mag)
-        mag_loss = mag_loss + torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
+        sc_loss = sc_loss + spectral_convergence(x_mag, y_mag, glob)
+        mag = torch.mean(torch.abs(torch.log(y_mag) - torch.log(x_mag)))
+        mag_loss = mag_loss + (mag if glob is None else mag / glob.world)
     n = len(resolutions)
     return sc_loss / n, mag_loss / n
 
