@@ -159,6 +159,34 @@ Phases (any failure exits non-zero without the final line):
    hp.dist as a one-rank NCCL group on cuda:0, the two runs' states equal
    to the bit.
 
+16. making a voice model through the port's entry points, with seeded
+   random extractor checkpoints at the published widths (as phase 12):
+   `[prep]` the preprocessing CLI on a synthetic dataset_raw/ of two
+   speakers at 44.1 kHz (2.5-21 s: 17 and 21 s cross whisper's 15 s and
+   HuBERT's 20 s windows), staged and --serial in ABBA turns into four
+   trees (the first two held file by file: pitch equal,
+   features and specs within 1e-4, each spec within 1e-5 of
+   linear_spectrogram of its 32 kHz wave), a rerun that skips every stage,
+   8 filelist rows and the dry run, wall ms by stage, audio s per wall s,
+   the staged driver's busy share under torch.profiler, peak memory and
+   CREPE's memory at 512- and 2048-frame batches, then --stage cdc / trim against the
+   port's functions; no kernel launches; `[prep-flow]` the trainer CLI for
+   2 steps on those filelists at base width from a .json config (91 + 91
+   launches a step), the export CLI with --artifact at 1020 frames, the
+   artifact (B1 through the operator svc::snake_alias, 91 launches a call)
+   against the kernel model on one chunk of the features with the same
+   noise (5e-5), its ms per chunk beside svc_infer's in turns, the
+   inference CLI from the exported checkpoint with the features (91 a
+   chunk), the three extractor artifacts against their modules (whisper at
+   its width cut to 4 layers; PPG and units 1e-3, CREPE 1e-4) with export
+   seconds and bytes; `[webui]` the WebUI's server in a thread: GET / in
+   both languages, POST /export and POST /infer polled on /log until done
+   (91 launches a chunk); `[tp]` sharded_ppg_fn in a one-rank NCCL group
+   equal to the plain 24-layer WhisperEncoder on a 15 s window to the bit,
+   unmasked and with a key mask;
+   `[resnet-spk]` ResNetSpeakerEncoder at (3, 4, 6, 3), card vs CPU within
+   1e-5.
+
 Then prints a {"kernels": [...]} line, the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -167,6 +195,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import io
 import json
 import os
 import shutil
@@ -183,13 +212,19 @@ import torch.nn.functional as F
 
 from scipy.io import wavfile
 
+from whisper_vits_svc_tpu_torch.cli import export as cli_export
 from whisper_vits_svc_tpu_torch.cli import inference as cli_inference
+from whisper_vits_svc_tpu_torch.cli import preprocessing as cli_prep
+from whisper_vits_svc_tpu_torch.cli import trainer as cli_trainer
+from whisper_vits_svc_tpu_torch.cli import webui as cli_webui
 from whisper_vits_svc_tpu_torch.data import native_loader
+from whisper_vits_svc_tpu_torch.data import preprocess as prep_mod
 from whisper_vits_svc_tpu_torch.data.dataset import (
     MAX_SEGMENTS, BucketBatcher, SvcDataset, boundaries_for,
 )
 from whisper_vits_svc_tpu_torch.infer import pipeline
 from whisper_vits_svc_tpu_torch.infer import retrieval as retrieval_mod
+from whisper_vits_svc_tpu_torch.infer import serving
 from whisper_vits_svc_tpu_torch.infer import stream_extract
 from whisper_vits_svc_tpu_torch.infer.retrieval import DummyRetrieval
 from whisper_vits_svc_tpu_torch.infer.stream import StreamingSvc
@@ -201,7 +236,9 @@ from whisper_vits_svc_tpu_torch.models.synthesizer import slice_segments
 from whisper_vits_svc_tpu_torch.nn.nsf import source_hn_nsf
 from whisper_vits_svc_tpu_torch.nn.snake import snake_alias_fused_cm
 from whisper_vits_svc_tpu_torch.ops import amp_cuda, snake_cuda
+from whisper_vits_svc_tpu_torch.ops import stft as stft_mod
 from whisper_vits_svc_tpu_torch.parallel import ddp as tddp
+from whisper_vits_svc_tpu_torch.parallel import sharding
 from whisper_vits_svc_tpu_torch.train import checkpoint as tckpt
 from whisper_vits_svc_tpu_torch.train import loop as tloop
 from whisper_vits_svc_tpu_torch.train import step as tstep
@@ -2731,6 +2768,685 @@ def report_train_ddp(dd: dict, smi: str) -> None:
 
 
 
+# ------------------------------------------------------------------ the make-a-voice flow
+
+PREP_SPEAKERS = {"spk0": (2.5, 4.0, 9.0, 17.0), "spk1": (3.0, 6.5, 12.0, 21.0)}
+PREP_SR = 44100
+PREP_ATOL = 1e-4       # staged against serial: features and specs, max abs
+PREP_SPEC_ATOL = 1e-5  # a staged spec against linear_spectrogram of its wave
+PREP_STAGES = ("resample", "pitch", "whisper", "hubert", "speaker", "specs")
+PREP_LOGS = {"resample": "resample:", "pitch": "pitch:", "whisper": "whisper ppg:",
+             "hubert": "hubert vec:", "speaker": "speaker embed:", "specs": "specs:"}
+PREP_BATCH = 2         # the flow's training batch (8 utterances, 4 of them validation)
+PREP_FLOW_STEPS = 2
+SERVE_WHISPER_LAYERS = 4  # a 32-layer float32 whisper artifact is about 2.5 GB
+SERVE_CREPE_BATCH = 512
+SERVE_ATOL = dict(whisper=1e-3, hubert=1e-3, crepe=1e-4)  # as [audio-in]
+WEBUI_WAVE_SECONDS = 6.0
+WEBUI_POLL_S = 600.0
+RESNET_ATOL = 1e-5
+
+
+def longest_utterance() -> tuple[str, str]:
+    """(speaker, name) of PREP_SPEAKERS' longest utterance."""
+    spk, lengths = max(PREP_SPEAKERS.items(), key=lambda kv: max(kv[1]))
+    return spk, f"u{int(np.argmax(lengths))}"
+
+
+def prep_config(base_hp, root: Path) -> dict:
+    """The base config as a plain dict with the flow's batch size and its
+    files and logs under `root`."""
+    hp = json.loads(json.dumps(base_hp))
+    hp["train"]["batch_size"] = PREP_BATCH
+    hp["data"].update(training_files=str(root / "files_staged" / "train.txt"),
+                      validation_files=str(root / "files_staged" / "valid.txt"))
+    hp["log"].update(info_interval=1, eval_interval=10**6, save_interval=1, num_audio=0,
+                     pth_dir=str(root / "chkpt"), log_dir=str(root / "logs"), keep_ckpts=0)
+    return hp
+
+
+class _StampedLines(io.TextIOBase):
+    """stdout that keeps each line with the time it was written."""
+
+    def __init__(self):
+        self.lines, self._buf = [], ""
+
+    def write(self, s: str) -> int:
+        self._buf += s
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(s)
+
+
+def prep_request(argv: list, device) -> dict:
+    """The preprocessing CLI's `main` with its output kept line by line; the
+    driver's span is marked by wrapping `preprocess` from outside, and each
+    stage's wall runs from the previous stage's log line to its own (every
+    stage reads its last batch back before it logs)."""
+    orig, mark = cli_prep.preprocess, {}
+
+    def timed(*args, **kwargs):
+        sync(device)
+        mark["t0"] = time.perf_counter()
+        out = orig(*args, **kwargs)
+        sync(device)
+        mark["t1"] = time.perf_counter()
+        return out
+
+    out = _StampedLines()
+    cli_prep.preprocess = timed
+    try:
+        sync(device)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            stats = cli_prep.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        cli_prep.preprocess = orig
+    stage_ms, prev = {}, mark["t0"]
+    for t, line in out.lines:
+        for stage, head in PREP_LOGS.items():
+            if line.startswith(head) and mark["t0"] <= t <= mark["t1"]:
+                stage_ms[stage], prev = 1e3 * (t - prev), t
+    text = "\n".join(line for _, line in out.lines)
+    return dict(stats=stats, wall=wall, prep_s=mark["t1"] - mark["t0"], stage_ms=stage_ms,
+                text=text)
+
+
+def npy_tree(root: Path) -> dict:
+    return {str(p.relative_to(root)): p for p in sorted(root.rglob("*.npy"))}
+
+
+def prep_phase(base_hp, root: Path, widths: dict = AUDIO_IN_FULL, device="cuda") -> dict:
+    """The preprocessing CLI on the card on a synthetic dataset_raw/ of two
+    speakers at 44.1 kHz, with seeded random extractor checkpoints at
+    `widths`: once staged and once --serial into separate trees (every file
+    held: pitch equal, features and specs within PREP_ATOL, the waves
+    byte-equal), the specs against linear_spectrogram of the same 32 kHz
+    wave (PREP_SPEC_ATOL), a rerun that skips every stage, the filelists
+    and the dry run; the staged driver once more under torch.profiler with
+    the extractors loaded; CREPE's peak memory at the drivers' 512-frame
+    batches and at 2048; then
+    --stage cdc and --stage trim on two of the waves against the port's
+    functions. No kernel launches in any of it."""
+    phase_t0 = time.perf_counter()
+    (root / "ckpt").mkdir(parents=True)
+    ckpts = write_extractor_checkpoints(root / "ckpt", widths, device)
+    raw, audio_s, n_items = root / "dataset_raw", 0.0, 0
+    for si, (spk, lengths) in enumerate(PREP_SPEAKERS.items()):
+        (raw / spk).mkdir(parents=True)
+        for i, secs in enumerate(lengths):
+            save_wav(str(raw / spk / f"u{i}.wav"),
+                     synthetic_voice(secs, PREP_SR, seed=40 + 10 * si + i, f0=150.0 + 60 * si),
+                     PREP_SR)
+            audio_s += secs
+            n_items += 1
+    cfg = root / "base.json"
+    cfg.write_text(json.dumps(prep_config(base_hp, root)))
+    common = ["-c", str(cfg), "--dataset-raw", str(raw), "--whisper-ckpt",
+              ckpts["whisper"]["path"], "--hubert-ckpt", ckpts["hubert"]["path"],
+              "--crepe-ckpt", ckpts["crepe"]["path"], "--speaker-ckpt",
+              ckpts["speaker"]["path"], "--device", str(device)]
+
+    def tree(name):
+        return ["--out", str(root / f"data_{name}"), "--files", str(root / f"files_{name}")]
+
+    runs = {}
+    reset_counts()
+    # in ABBA order: the first run pays the process's warm-up (cuDNN's
+    # algorithm choices, the first loads of each kernel), so each driver runs
+    # once first and once last
+    for name, extra in (("staged", []), ("serial", ["--serial"]), ("serial_2", ["--serial"]),
+                        ("staged_2", [])):
+        base = 0
+        if torch.device(device).type == "cuda":
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        runs[name] = prep_request(common + tree(name) + extra, device)
+        runs[name]["peak"] = (torch.cuda.max_memory_allocated() - base
+                              if torch.device(device).type == "cuda" else 0)
+    rerun = prep_request(common + tree("staged"), device)
+    counts = read_counts()
+    check(not any(counts.values()), f"preprocessing launched kernels: {counts}")
+    for name, r in runs.items():
+        st = r["stats"]
+        check(st["items"] == st["rows"] == n_items and not any(st["skipped"].values()),
+              f"{name}: {st}, expected {n_items} items and rows, nothing skipped")
+        check("[skip]" not in r["text"], f"{name} skipped a stage:\n{r['text']}")
+        batches = [int(line.split(",")[1].split()[0]) for line in r["text"].splitlines()
+                   if line.startswith("dataset dry-run ok")]
+        check(batches and batches[0] > 0, f"{name}: dry run {batches}:\n{r['text'][-2000:]}")
+        r["dry_run_batches"] = batches[0]
+    check(rerun["stats"]["skipped"] == dict.fromkeys(PREP_STAGES, n_items),
+          f"rerun: skipped {rerun['stats']['skipped']}, expected {n_items} each")
+    check(set(runs["staged"]["stage_ms"]) == set(PREP_STAGES),
+          f"stage lines {runs['staged']['stage_ms']}")
+
+    # the two trees, file by file
+    a, b = npy_tree(root / "data_staged"), npy_tree(root / "data_serial")
+    check(list(a) == list(b) and len(a) == 5 * n_items + len(PREP_SPEAKERS),
+          f"trees differ: {sorted(set(a) ^ set(b))[:8]}, {len(a)} files")
+    errs = {}
+    for rel, pa in a.items():
+        sub = rel.split("/")[0]
+        x, y = np.load(pa), np.load(b[rel])
+        check(x.shape == y.shape, f"{rel}: {x.shape} against serial {y.shape}")
+        if sub == "pitch":
+            bad = np.flatnonzero(x != y)
+            check(bad.size == 0, f"{rel}: pitch differs from serial at frames {bad[:10]} "
+                                 f"({bad.size} of {x.size})")
+        else:
+            errs[sub] = max(errs.get(sub, 0.0), max_err(x, y))
+    check(max(errs.values()) <= PREP_ATOL,
+          f"staged against serial max abs err {errs}, above {PREP_ATOL}")
+    for sub in ("waves-16k", "waves-32k"):
+        for p in sorted((root / "data_staged" / sub).rglob("*.wav")):
+            rel = p.relative_to(root / "data_staged")
+            check(p.read_bytes() == (root / "data_serial" / rel).read_bytes(), f"{rel} differs")
+    spec_err, data = 0.0, base_hp["data"]
+    for p in sorted((root / "data_staged" / "waves-32k").rglob("*.wav")):
+        rel = p.relative_to(root / "data_staged" / "waves-32k")
+        a32 = audio_io.load_wav(str(p))[0]
+        with torch.inference_mode():
+            want = stft_mod.linear_spectrogram(
+                torch.from_numpy(a32)[None].to(device), data["filter_length"],
+                data["hop_length"], data["win_length"])[0].cpu().numpy()
+        got = np.load(root / "data_staged" / "specs" / rel.with_suffix(".spec.npy"))
+        check(got.shape == want.shape, f"{rel}: spec {got.shape}, expected {want.shape}")
+        spec_err = max(spec_err, max_err(got, want))
+    check(spec_err <= PREP_SPEC_ATOL, f"staged specs against linear_spectrogram: max abs err "
+                                      f"{spec_err:.3e} above {PREP_SPEC_ATOL}")
+    rows = {n: len((root / "files_staged" / n).read_text().splitlines())
+            for n in ("train.txt", "valid.txt")}
+    check(sum(rows.values()) == n_items, f"filelists {rows}, expected {n_items} rows")
+    pitch = np.concatenate([np.load(p) for rel, p in a.items() if rel.startswith("pitch")])
+
+    # the staged driver under the profiler, the extractors loaded
+    ex = prep_mod.Extractors(
+        crepe=crepe_mod.load_crepe(ckpts["crepe"]["path"], device=device),
+        whisper=whisper_mod.load_whisper_encoder(ckpts["whisper"]["path"], device),
+        hubert=hubert_mod.load_hubert_soft(ckpts["hubert"]["path"], device),
+        speaker=spk_mod.load_speaker_encoder(ckpts["speaker"]["path"], device))
+    hp_data = config_from_dict(prep_config(base_hp, root)).data
+    prof = None
+    if torch.device(device).type == "cuda":
+        prof = profile(lambda: prep_mod.preprocess(
+            str(raw), str(root / "data_prof"), str(root / "files_prof"), hp_data, ex,
+            progress=False, device=device))
+        # CREPE's peak memory on the longest utterance at the drivers' batch
+        # (CREPE_BATCH frames) and at the JAX package's staged 2048
+        spk, name = longest_utterance()
+        a16 = audio_io.load_wav(str(root / "data_staged" / "waves-16k" / spk / f"{name}.wav"))[0]
+        crepe_peak = {}
+        for frames in (prep_mod.CREPE_BATCH, 2048):
+            sync(device)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            crepe_mod.compute_f0(ex.crepe, a16, np.random.default_rng(0), batch_size=frames)
+            crepe_peak[frames] = torch.cuda.max_memory_allocated() - base
+    else:
+        crepe_peak = {}
+    del ex
+
+    # the VCTK clean-up stages on two of the waves
+    vctk = {}
+    cdc_in = root / "vctk_in" / "spk0"
+    cdc_in.mkdir(parents=True)
+    for i in (0, 1):
+        shutil.copy(raw / "spk0" / f"u{i}.wav", cdc_in / f"u{i}.wav")
+    for stage, fn in (("cdc", lambda x, sr: prep_mod.cut_direct_content(x)),
+                      ("trim", prep_mod.trim_silence_concat)):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_prep.main(["--stage", stage, "-i", str(root / "vctk_in"),
+                           "-o", str(root / f"vctk_{stage}")])
+        vctk[stage] = 1e3 * (time.perf_counter() - t0)
+        for src in sorted(cdc_in.glob("*.wav")):
+            x, sr = audio_io.load_wav(str(src))
+            got_sr, got = wavfile.read(root / f"vctk_{stage}" / "spk0" / src.name)
+            want = prep_mod._quantize_int16_trunc(fn(x, sr))
+            check(got_sr == sr and np.array_equal(got, want),
+                  f"--stage {stage} {src.name}: not the port's function's int16 output")
+    return dict(ckpts=ckpts, runs=runs, rerun=rerun, errs=errs, spec_err=spec_err, rows=rows,
+                n_items=n_items, audio_s=audio_s, prof=prof, crepe_peak=crepe_peak,
+                vctk_ms=vctk, voiced=float((pitch > 0).mean()), cfg=str(cfg),
+                phase_s=time.perf_counter() - phase_t0)
+
+
+def report_prep(pr: dict, smi: str) -> None:
+    runs = pr["runs"]
+    s, r = runs["staged"], runs["serial"]
+
+    def run(name):
+        x = runs[name]
+        return (f"{name} CLI {1e3 * x['wall']:.2f} ms ({1e3 * x['prep_s']:.2f} ms in the "
+                f"driver, {pr['audio_s'] / x['prep_s']:.2f} audio s per wall s)")
+
+    staged_s = s["prep_s"] + runs["staged_2"]["prep_s"]
+    serial_s = r["prep_s"] + runs["serial_2"]["prep_s"]
+    print(f"[prep] {pr['n_items']} utterances, {pr['audio_s']:.1f} s of 44.1 kHz audio, two "
+          f"speakers; in turns " + ", ".join(run(n) for n in runs) + f"; the staged driver "
+          f"x{serial_s / staged_s:.2f} the serial over both turns; rerun "
+          f"{1e3 * pr['rerun']['wall']:.2f} ms, skipped {pr['rerun']['stats']['skipped']} | "
+          f"{smi}", flush=True)
+    print("[prep] staged wall ms by stage, first / last turn " + json.dumps(
+        {k: [round(v, 2), round(runs["staged_2"]["stage_ms"][k], 2)]
+         for k, v in s["stage_ms"].items()}) + f"; peak device memory above the "
+          f"phase's start, staged "
+          f"{s['peak'] / 2**30:.2f} GiB, serial {r['peak'] / 2**30:.2f} GiB; CREPE above the "
+          f"loaded models at " + ", ".join(f"{k}-frame batches {v / 2**30:.3f} GiB"
+                                           for k, v in pr["crepe_peak"].items())
+          + f" | {smi}", flush=True)
+    print(f"[prep] staged against serial, max abs err " + json.dumps(
+        {k: float(f"{v:.3e}") for k, v in pr["errs"].items()}) + f" (bound {PREP_ATOL}), pitch "
+          f"equal ({100 * pr['voiced']:.1f}% of frames voiced); specs against "
+          f"linear_spectrogram {pr['spec_err']:.3e} (bound {PREP_SPEC_ATOL}); filelists "
+          f"{pr['rows']}, dry run {s['dry_run_batches']} batches of {PREP_BATCH}; "
+          f"--stage cdc / trim {pr['vctk_ms']['cdc']:.2f} / {pr['vctk_ms']['trim']:.2f} ms, "
+          f"equal to the port's functions", flush=True)
+    if pr["prof"]:
+        p = pr["prof"]
+        print(f"[prep-profile] the staged driver, extractors loaded: wall {p['wall_ms']:.2f} "
+              f"ms, device busy {p['busy_ms']:.2f} ms ({100 * p['busy_ms'] / p['wall_ms']:.1f}%), "
+              f"profiler on; device ms by kind "
+              + json.dumps({k: round(v, 3) for k, v in p["kinds"].items()}) + f" | {smi}",
+              flush=True)
+    print(f"[prep] phase {pr['phase_s']:.1f} s", flush=True)
+
+
+def prep_flow_phase(base_hp, root: Path, pr: dict, widths: dict = AUDIO_IN_FULL,
+                    device="cuda", n_snakes: int = 91,
+                    chunk_frames: int = CHUNK_FRAMES, serve_widths: bool = True) -> dict:
+    """[prep]'s dataset through the rest of the flow: the trainer CLI for
+    PREP_FLOW_STEPS steps at base width from a .json config (n_snakes
+    forward and backward launches a step); the export CLI with --artifact at
+    chunk_frames; the artifact, loaded, against the port's model with its
+    kernels on, on one chunk of [prep]'s features with the same noise
+    (CARD_VS_CPU_ATOL), each call n_snakes forward launches (the artifact's
+    through svc::snake_alias); the inference CLI from the exported checkpoint with
+    [prep]'s .ppg/.vec/.pit (n_snakes a chunk); the three extractor
+    artifacts against their modules (whisper at its published width, depth
+    cut to SERVE_WHISPER_LAYERS; HuBERT and CREPE as [prep] loads them)."""
+    phase_t0 = time.perf_counter()
+    cfg = pr["cfg"]
+    hp = config_from_dict(json.loads(Path(cfg).read_text()))
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        cli_trainer.main(["-c", cfg, "-n", "flow", "--max-steps", str(PREP_FLOW_STEPS),
+                          "--device", str(device)])
+    sync(device)
+    train_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    check(train_counts["direct"] == train_counts["bwd"] == n_snakes * PREP_FLOW_STEPS,
+          f"trainer CLI: {train_counts} launches in {PREP_FLOW_STEPS} steps, expected "
+          f"{n_snakes} forward and backward a step:\n{log.getvalue()[-2000:]}")
+    trained = tckpt.latest_checkpoint(str(root / "chkpt" / "flow"), "flow")
+    check(trained is not None and tckpt.load(trained)["step"] == PREP_FLOW_STEPS,
+          f"trainer CLI: checkpoint {trained}")
+
+    export, artifact = root / "export.pth", root / "svc_serving.pt2"
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_export.main(["--checkpoint", trained, "--out", str(export), "--artifact",
+                         str(artifact), "--config", cfg, "--chunk-frames", str(chunk_frames),
+                         "--device", str(device)])
+    export_s = time.perf_counter() - t0
+    check(not any(read_counts().values()), f"export launched kernels: {read_counts()}")
+
+    # one chunk of [prep]'s longest utterance
+    stem, (who, name) = root / "data_staged", longest_utterance()
+    files = dict(ppg=stem / "whisper" / who / f"{name}.ppg.npy",
+                 vec=stem / "hubert" / who / f"{name}.vec.npy",
+                 pit=stem / "pitch" / who / f"{name}.pit.npy",
+                 spk=stem / "singer" / f"{who}.spk.npy")
+    ppg = np.repeat(np.load(files["ppg"]), 2, 0)
+    vec = np.repeat(np.load(files["vec"]), 2, 0)
+    pit = np.load(files["pit"])
+    spk = np.load(files["spk"])
+    t = chunk_frames
+    model = pipeline.load_svc_model(str(export), pipeline.build_infer_model(hp, device=device))
+    dev = next(model.parameters()).device
+    args = (torch.from_numpy(ppg[None, :t]).to(dev), torch.from_numpy(vec[None, :t]).to(dev),
+            torch.from_numpy(pit[None, :t]).to(dev), torch.from_numpy(spk[None]).to(dev),
+            torch.full((1,), t, device=dev),
+            pipeline.pitch2source_bucketed(model, pit[:t], dev))
+    noise = serving.draw_noise(7, (1, t, hp.vits.inter_channels), dev)
+    program = serving.load_exported(str(artifact))
+    reset_counts()
+    with torch.inference_mode():
+        want = model(*args, 1.0, noise=noise)
+        sync(device)
+        kernel_counts = read_counts()
+        reset_counts()
+        got = program(*args, noise)
+        sync(device)
+        artifact_counts = read_counts()
+    check(kernel_counts["direct"] == n_snakes and artifact_counts == kernel_counts,
+          f"the kernel model launched {kernel_counts}, the artifact {artifact_counts}: "
+          f"expected {n_snakes} forward launches each (svc::snake_alias in the artifact)")
+    art_err = max_err(got.cpu(), want.float().cpu())
+    check(got.shape == want.shape and art_err <= CARD_VS_CPU_ATOL,
+          f"artifact against the kernels: {tuple(got.shape)}, max abs err {art_err:.3e} "
+          f"above {CARD_VS_CPU_ATOL}")
+    fn = serving.load_synthesis(str(artifact))
+    seed_err = max_err(fn(*args, 7).cpu(), got.cpu())
+    other_err = max_err(fn(*args, 8).cpu(), got.cpu())
+    check(seed_err <= CARD_VS_CPU_ATOL < other_err,
+          f"load_synthesis: seed 7 is {seed_err:.3e} from the program on seed 7's noise, "
+          f"seed 8 {other_err:.3e}")
+
+    # ms per chunk: the artifact (noise drawn for the seed) against svc_infer
+    # on one 1000-frame chunk of the same features, in turns
+    req = (spk, pit[:1000], ppg[:1000], vec[:1000])
+    art_ms, infer_ms = [], []
+    for i in range(6):
+        for fn_, ms in ((lambda: fn(*args, i), art_ms),
+                        (lambda: pipeline.svc_infer(model, DummyRetrieval(), *req, hp=hp,
+                                                    device=device), infer_ms)):
+            sync(device)
+            t0 = time.perf_counter()
+            fn_()
+            sync(device)
+            ms.append(1e3 * (time.perf_counter() - t0))
+    art_ms, infer_ms = art_ms[1:], infer_ms[1:]  # the first call warms up
+
+    # cli.inference from the exported checkpoint with [prep]'s features
+    csv = root / f"{name}.pit.csv"
+    pipeline.save_csv_pitch(pit, str(csv))
+    infer = extras_request(root / "flow_infer", [
+        "--config", cfg, "--model", str(export), "--spk", str(files["spk"]),
+        "--ppg", str(files["ppg"]), "--vec", str(files["vec"]), "--pit", str(csv),
+        "--device", str(device)], device, n_snakes, hp.data.hop_length)
+
+    # the extractor artifacts against their modules
+    extractors = {}
+    if serve_widths:
+        wd = dict(widths["whisper"])
+        with torch.device("meta"):
+            shape = whisper_mod.WhisperEncoder(
+                n_mels=wd["n_mels"], n_ctx=wd["n_audio_ctx"], n_state=wd["n_audio_state"],
+                n_head=wd["n_audio_head"], n_layer=SERVE_WHISPER_LAYERS)
+        whisper = whisper_mod.WhisperEncoder(
+            n_mels=wd["n_mels"], n_ctx=wd["n_audio_ctx"], n_state=wd["n_audio_state"],
+            n_head=wd["n_audio_head"], n_layer=SERVE_WHISPER_LAYERS)
+        whisper.load_state_dict(random_state_dict(shape, 51, device), strict=True)
+        mods = dict(whisper=whisper.to(device).eval(),
+                    hubert=hubert_mod.load_hubert_soft(pr["ckpts"]["hubert"]["path"], device),
+                    crepe=crepe_mod.load_crepe(pr["ckpts"]["crepe"]["path"], device=device))
+        voice = synthetic_voice(20.0, 16000, seed=52, f0=200.0)
+        inputs = dict(
+            whisper=torch.from_numpy(voice[None, : whisper_mod.WINDOW_SAMPLES]).to(device),
+            hubert=torch.from_numpy(voice[None, : 20 * 16000]).to(device),
+            crepe=torch.from_numpy(crepe_mod.frame_audio(voice, 160)[:SERVE_CREPE_BATCH]
+                                   ).to(device))
+        with torch.inference_mode():
+            direct = dict(
+                whisper=mods["whisper"](whisper_mod.log_mel_spectrogram(inputs["whisper"])),
+                hubert=mods["hubert"](inputs["hubert"]),
+                crepe=mods["crepe"](crepe_mod.normalize_frames(inputs["crepe"])))
+        for kind, module in mods.items():
+            path = root / f"{kind}.pt2"
+            t0 = time.perf_counter()
+            n = serving.export_extractor(kind, module, str(path),
+                                         batch=SERVE_CREPE_BATCH if kind == "crepe" else 1)
+            secs = time.perf_counter() - t0
+            with torch.inference_mode():
+                out = serving.load_exported(str(path))(inputs[kind])
+            err = max_err(out.cpu(), direct[kind].cpu())
+            check(out.shape == direct[kind].shape and err <= SERVE_ATOL[kind],
+                  f"{kind} artifact: {tuple(out.shape)}, max abs err {err:.3e} above "
+                  f"{SERVE_ATOL[kind]}")
+            extractors[kind] = dict(export_s=secs, bytes=n, err=err, shape=list(out.shape))
+            path.unlink()
+        del mods, direct
+    return dict(train_s=train_s, train_counts=train_counts, trained=trained, export=str(export),
+                export_s=export_s, artifact_bytes=artifact.stat().st_size, art_err=art_err,
+                seed_err=seed_err, other_err=other_err, art_ms=art_ms, infer_ms=infer_ms,
+                infer=infer, kernel_counts=kernel_counts, artifact_counts=artifact_counts,
+                extractors=extractors,
+                chunk_frames=chunk_frames,
+                whisper_dims=f"{widths['whisper']['n_audio_state']} wide, "
+                             f"{SERVE_WHISPER_LAYERS} layers",
+                phase_s=time.perf_counter() - phase_t0)
+
+
+def report_prep_flow(pf: dict, smi: str) -> None:
+    c = pf["train_counts"]
+    print(f"[prep-flow] trainer CLI on [prep]'s filelists, base width, batch {PREP_BATCH}: "
+          f"{PREP_FLOW_STEPS} steps in {pf['train_s']:.2f} s (model build, data, checkpoint "
+          f"included), snake launches {c['direct']} forward / {c['bwd']} backward | {smi}",
+          flush=True)
+    print(f"[prep-flow] export CLI with --artifact ({pf['chunk_frames']} frames, B1 through "
+          f"svc::snake_alias): {pf['export_s']:.2f} s, {pf['artifact_bytes']} bytes; the "
+          f"artifact ({pf['artifact_counts']['direct']} B1 launches a call) against the "
+          f"kernel model on one chunk of [prep]'s features, same noise: max abs err "
+          f"{pf['art_err']:.3e} (bound {CARD_VS_CPU_ATOL}); load_synthesis(seed 7) against the "
+          f"program on seed 7's noise {pf['seed_err']:.3e}, seed 8 {pf['other_err']:.3e}; "
+          f"per chunk, in turns: "
+          f"artifact {spread(pf['art_ms'])}, svc_infer on a 1000-frame request "
+          f"{spread(pf['infer_ms'])} | {smi}", flush=True)
+    r = pf["infer"]
+    print(f"[prep-flow] inference CLI from the exported checkpoint with [prep]'s features: "
+          f"{r['frames']} frames, {r['chunks']} chunks, {1e3 * r['wall']:.2f} ms wall "
+          f"(synthesis {1e3 * r['synthesis']:.2f}), snake launches {r['counts']['direct']} "
+          f"({r['counts']['direct'] // r['chunks']} a chunk) | {smi}", flush=True)
+    if pf["extractors"]:
+        print(f"[prep-flow] extractor artifacts (whisper {pf['whisper_dims']}, a 32-layer "
+              f"float32 artifact being about 2.5 GB; HuBERT and CREPE as [prep] loads them, "
+              f"CREPE at {SERVE_CREPE_BATCH} frames) against their modules: " + "; ".join(
+                  f"{k} export {v['export_s']:.2f} s, {v['bytes']} bytes, out {v['shape']}, "
+                  f"max abs err {v['err']:.3e} (bound {SERVE_ATOL[k]})"
+                  for k, v in pf["extractors"].items()) + f" | {smi}", flush=True)
+    print(f"[prep-flow] phase {pf['phase_s']:.1f} s", flush=True)
+
+
+def _get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode()
+
+
+def _post(url: str, form: dict) -> None:
+    import urllib.parse
+    import urllib.request
+
+    data = urllib.parse.urlencode(form).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=30) as r:
+        r.read()
+
+
+def _await_job(url: str, name: str) -> tuple[str, float]:
+    """Poll /log until job `name` reads done (returns the log and the wait);
+    failed, or no end within WEBUI_POLL_S, fails the phase."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < WEBUI_POLL_S:
+        log = _get(url + "/log")
+        if f"== {name} [done] ==" in log:
+            return log, time.perf_counter() - t0
+        check(f"== {name} [failed] ==" not in log, f"WebUI job {name} failed:\n{log[-3000:]}")
+        time.sleep(0.2)
+    check(False, f"WebUI job {name} did not end in {WEBUI_POLL_S} s")
+
+
+def webui_phase(base_hp, root: Path, pr: dict, pf: dict, device="cuda",
+                n_snakes: int = 91) -> dict:
+    """The port's WebUI server on a free port, in a thread: GET / in both
+    languages, then POST /export of [prep-flow]'s trainer checkpoint and
+    POST /infer of a synthetic wave, from a work directory whose default
+    checkpoint paths hold [prep]'s random-weight extractor checkpoints;
+    each job polled on /log until it reads done."""
+    import threading
+
+    work = root / "webui"
+    for default, kind in (("whisper_pretrain/large-v2.pt", "whisper"),
+                          ("hubert_pretrain/hubert-soft-0d54a1f4.pt", "hubert"),
+                          ("crepe/assets/full.pth", "crepe")):
+        (work / default).parent.mkdir(parents=True, exist_ok=True)
+        os.symlink(pr["ckpts"][kind]["path"], work / default)
+    (work / "configs").mkdir()
+    shutil.copy(pr["cfg"], work / "configs" / "base.json")
+    save_wav(str(work / "test.wav"), synthetic_voice(WEBUI_WAVE_SECONDS, PREP_SR, seed=61),
+             PREP_SR)
+    server = cli_webui.make_server("127.0.0.1", 0, str(device))
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        pages = {lang: _get(f"{url}/?lang={lang}") for lang in ("en_US", "zh_CN")}
+        check("Preprocessing-Training" in pages["en_US"] and "预处理-训练" in pages["zh_CN"]
+              and "TPU" not in pages["en_US"], "WebUI pages lack their language's strings")
+        reset_counts()
+        _post(url + "/export", {"checkpoint": pf["trained"], "lang": "en_US"})
+        _, export_s = _await_job(url, "export")
+        check(Path("sovits5.0_export.pth").is_file(), "the export job wrote no checkpoint")
+        _post(url + "/infer", {"config": "configs/base.json", "model": "sovits5.0_export.pth",
+                               "wave": "test.wav", "spk": str(root / "data_staged" / "singer"
+                                                              / "spk0.spk.npy"),
+                               "shift": "2", "lang": "en_US"})
+        log, infer_s = _await_job(url, "infer")
+        counts = read_counts()
+        sr, wav = wavfile.read("svc_out.wav")
+        frames = min(2 * len(np.load("svc_tmp.ppg.npy")), 2 * len(np.load("svc_tmp.vec.npy")),
+                     len(pipeline.load_csv_pitch("svc_tmp.pit.csv")))
+        chunks = len(pipeline._chunk_plan(frames, 1000, 10))
+        rms = float(np.sqrt(np.mean(np.square(wav / 32768.0))))
+        check(sr == base_hp["data"]["sampling_rate"] and rms > 1e-3,
+              f"the infer job's svc_out.wav: {sr} Hz, rms {rms}")
+        check(counts["direct"] == n_snakes * chunks and counts["bwd"] == 0,
+              f"the WebUI's jobs launched {counts} for {chunks} chunks")
+    finally:
+        os.chdir(cwd)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    return dict(export_s=export_s, infer_s=infer_s, counts=counts, chunks=chunks,
+                samples=len(wav), rms=rms, page_bytes={k: len(v) for k, v in pages.items()})
+
+
+def report_webui(wu: dict, smi: str) -> None:
+    print(f"[webui] GET / en_US and zh_CN ({wu['page_bytes']} bytes); POST /export done in "
+          f"{wu['export_s']:.2f} s, POST /infer of a {WEBUI_WAVE_SECONDS} s 44.1 kHz wave "
+          f"(features extracted by the job, shift 2) done in {wu['infer_s']:.2f} s: "
+          f"{wu['samples']} samples, rms {wu['rms']:.4f}, {wu['chunks']} chunks, snake "
+          f"launches {wu['counts']['direct']} | {smi}", flush=True)
+
+
+def tp_phase(widths: dict = AUDIO_IN_FULL, device="cuda", n_layer: int | None = None) -> dict:
+    """sharded_ppg_fn in a one-rank process group (NCCL on the card, gloo on
+    the CPU) against the plain WhisperEncoder on one 15 s window at the
+    published width (the 24 layers the loader keeps of 32, seeded random
+    weights), unmasked and with the key mask of a zero-padded window: equal
+    to the bit, a one-rank all_reduce being a copy."""
+    import torch.distributed as tdist
+
+    check(not tdist.is_initialized(), "a process group is already up before [tp]")
+    wd = widths["whisper"]
+    n_layer = n_layer or wd["n_audio_layer"] - wd["n_audio_layer"] // 4
+    dims = dict(n_mels=wd["n_mels"], n_ctx=wd["n_audio_ctx"], n_state=wd["n_audio_state"],
+                n_head=wd["n_audio_head"], n_layer=n_layer)
+    with torch.device("meta"):
+        shape = whisper_mod.WhisperEncoder(**dims)
+    model = whisper_mod.WhisperEncoder(**dims)
+    model.load_state_dict(random_state_dict(shape, 71, device), strict=True)
+    model = model.to(device).eval()
+    voice = synthetic_voice(15.0, 16000, seed=72)
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    tdist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}",
+                             world_size=1, rank=0)
+    try:
+        with torch.inference_mode():
+            mel = whisper_mod.log_mel_spectrogram(torch.from_numpy(voice[None]).to(device))
+            plain_ms, plain = [], None
+            for _ in range(3):
+                sync(device)
+                t0 = time.perf_counter()
+                plain = model(mel)
+                sync(device)
+                plain_ms.append(1e3 * (time.perf_counter() - t0))
+            # a zero-padded window, its padded keys masked
+            n_frames = torch.tensor([2 * mel.shape[1] // 3], device=device)
+            plain_masked = model(mel, n_frames)
+        sharding.shard_whisper_params(model)
+        run = sharding.sharded_ppg_fn(model)
+        tp_ms, out = [], None
+        for _ in range(3):
+            sync(device)
+            t0 = time.perf_counter()
+            out = run(mel)
+            sync(device)
+            tp_ms.append(1e3 * (time.perf_counter() - t0))
+        equal = torch.equal(out, plain)
+        check(equal, f"one-rank sharded whisper against the plain encoder: max abs err "
+                     f"{max_err(out.cpu(), plain.cpu()):.3e}, expected equal")
+        masked = run(mel, n_frames)
+        check(torch.equal(masked, plain_masked),
+              f"one-rank sharded whisper with n_frames against the plain encoder: max abs "
+              f"err {max_err(masked.cpu(), plain_masked.cpu()):.3e}, expected equal")
+        backend_seen = tdist.get_backend()
+    finally:
+        tdist.destroy_process_group()
+    return dict(dims=dims, shape=list(out.shape), plain_ms=plain_ms[1:], tp_ms=tp_ms[1:],
+                backend=backend_seen, equal=equal)
+
+
+def report_tp(tp: dict, smi: str) -> None:
+    print(f"[tp] sharded_ppg_fn in a one-rank {tp['backend']} group against the plain "
+          f"WhisperEncoder ({tp['dims']}), one 15 s window -> {tp['shape']}, unmasked and "
+          f"with n_frames at 2/3 of the window: equal to the bit "
+          f"{tp['equal']}; ms {[round(x, 2) for x in tp['tp_ms']]} against "
+          f"{[round(x, 2) for x in tp['plain_ms']]} | {smi}", flush=True)
+
+
+def resnet_phase(device="cuda", layers=(3, 4, 6, 3), frames: int = 250) -> dict:
+    """ResNetSpeakerEncoder at the published widths (seeded random weights,
+    BatchNorm statistics included), the card against the CPU on a [2,
+    frames, 64] mel: the l2-normalised d-vector within RESNET_ATOL."""
+    with torch.device("meta"):
+        shape = spk_mod.ResNetSpeakerEncoder(layers=layers)
+    sd = random_state_dict(shape, 81, device)
+    mods = {}
+    for d in (device, "cpu"):
+        m = spk_mod.ResNetSpeakerEncoder(layers=layers)
+        m.load_state_dict(sd, strict=True)
+        mods[d] = m.to(d).eval()
+    mel = torch.from_numpy(np.random.default_rng(82).standard_normal((2, frames, 64))
+                           .astype(np.float32))
+    out, ms = {}, {}
+    with torch.inference_mode():
+        for d, m in mods.items():
+            for l2 in (True, False):
+                sync(device)
+                t0 = time.perf_counter()
+                out[d, l2] = m(mel.to(d), l2_norm=l2).cpu()
+                sync(device)
+                ms[d, l2] = 1e3 * (time.perf_counter() - t0)
+    err = max_err(out[device, True], out["cpu", True])
+    raw = out["cpu", False]
+    rel = float((out[device, False] - raw).abs().max() / raw.abs().max())
+    norms = torch.linalg.vector_norm(out[device, True], dim=-1)
+    check(out[device, True].shape == (2, 512) and err <= RESNET_ATOL,
+          f"ResNetSpeakerEncoder card vs CPU: max abs err {err:.3e} above {RESNET_ATOL}")
+    check(bool(torch.allclose(norms, torch.ones(2), atol=1e-5)), f"d-vector norms {norms}")
+    return dict(err=err, rel=rel, ms={f"{d}{'' if l2 else '_raw'}": v for (d, l2), v in ms.items()},
+                params=sum(v.numel() for v in sd.values()), layers=list(layers),
+                shape=list(mel.shape))
+
+
+def report_resnet(rs: dict, smi: str) -> None:
+    print(f"[resnet-spk] ResNetSpeakerEncoder layers {rs['layers']}, 64 mels, "
+          f"{rs['params']} values, card vs CPU on {rs['shape']}: d-vector max abs err "
+          f"{rs['err']:.3e} (bound {RESNET_ATOL}), unnormalised output max rel err "
+          f"{rs['rel']:.3e}; ms " + json.dumps({k: round(v, 2) for k, v in rs["ms"].items()})
+          + f" | {smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -2992,6 +3708,29 @@ def main() -> int:
     report_train_ddp(dd, smi)
     ddp_counts = dd["runs"]["ddp"]["counts"]
 
+    # making a voice model through the port's entry points: the preprocessing
+    # CLI, the trainer CLI, the export CLI and its torch.export artifacts, the
+    # inference CLI, the WebUI's jobs; then whisper's tensor-parallel forward
+    # and the ResNet d-vector
+    flow_root = Path(tempfile.mkdtemp(prefix="svc_prep_"))
+    try:
+        pr = prep_phase(BASE_MODEL_CONFIG, flow_root)
+        report_prep(pr, smi)
+        with snake_dtypes(key=lambda x: "padded" if x.shape[-1] % 128 else "tiled") as tiles:
+            pf = prep_flow_phase(BASE_MODEL_CONFIG, flow_root, pr)
+            report_prep_flow(pf, smi)
+            wu = webui_phase(BASE_MODEL_CONFIG, flow_root, pr, pf)
+            report_webui(wu, smi)
+        flow_tiles = dict(tiles)
+    finally:
+        shutil.rmtree(flow_root, ignore_errors=True)
+    tp = tp_phase()
+    report_tp(tp, smi)
+    report_resnet(resnet_phase(), smi)
+    flow = {"prep_train": pf["train_counts"], "prep_artifact_check": pf["kernel_counts"],
+            "prep_artifact": pf["artifact_counts"],
+            "prep_infer": pf["infer"]["counts"], "webui": wu["counts"]}
+
     kernels = [{
         "name": "snake_alias", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": launches,
@@ -3011,7 +3750,8 @@ def main() -> int:
                              "stream": st["counts"]["direct"],
                              "stream_audio": sa["counts"]["direct"],
                              "train_bf16d": bd["counts"]["direct"],
-                             "train_ddp": ddp_counts["direct"]},
+                             "train_ddp": ddp_counts["direct"]}
+                            | {k: v["direct"] for k, v in flow.items()},
         "bf16": b1_bf16 | {
             "bound_by": b1_bf16_by, "launches": bf16_req["dtypes"].get("bfloat16", 0),
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16"),
@@ -3043,7 +3783,8 @@ def main() -> int:
                              "audio_in": audio_in["bwd"],
                              "stream": st["counts"]["bwd"], "stream_audio": sa["counts"]["bwd"],
                              "train_bf16d": bd["counts"]["bwd"],
-                             "train_ddp": ddp_counts["bwd"]},
+                             "train_ddp": ddp_counts["bwd"]}
+                            | {k: v["bwd"] for k, v in flow.items()},
     }, {
         # the same Hopper kernel, at the shapes the JAX package sends to
         # _kernel_padded: the streaming window's stages whose T is no
@@ -3058,7 +3799,9 @@ def main() -> int:
         "per": f"one streaming block's {sum(c for _, c in padded_stages)} calls with T "
                f"no multiple of 128, base width, float32",
         "launches_by_path": {"stream": st["by_tile"].get("padded", 0),
-                             "stream_tiled": st["by_tile"].get("tiled", 0)},
+                             "stream_tiled": st["by_tile"].get("tiled", 0),
+                             "prep_flow_and_webui": flow_tiles.get("padded", 0),
+                             "prep_flow_and_webui_tiled": flow_tiles.get("tiled", 0)},
     }]
     chunk = f"one {CHUNK_FRAMES}-frame chunk at base width, float32"
     fused_run = alt_runs["fused"]
@@ -3076,7 +3819,8 @@ def main() -> int:
                              "svc_infer_fused": fused_run["counts"]["amp"],
                              "train_step": counts["amp"],
                              "train_loop": loop_run["counts"]["amp"],
-                             "audio_in": audio_in["amp"]},
+                             "audio_in": audio_in["amp"]}
+                            | {k: v["amp"] for k, v in flow.items()},
     })
     for variant, source, replaces in (("strips", SOURCE_STRIPS, REPLACES_STRIPS),
                                       ("mma", SOURCE_MMA, REPLACES_MMA)):
@@ -3095,7 +3839,8 @@ def main() -> int:
                                  f"svc_infer_{variant}": run["counts"][variant],
                                  "train_step": counts[variant],
                                  "train_loop": loop_run["counts"][variant],
-                                 "audio_in": audio_in[variant]},
+                                 "audio_in": audio_in[variant]}
+                                | {k: v[variant] for k, v in flow.items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -61,7 +61,8 @@ def test_kernel_modules_and_sources_stand_alone():
                    "models/salience.py", "models/swipe.py", "models/dio.py", "models/praat.py",
                    "models/silero_vad.py", "infer/post.py", "infer/tools.py", "cli/misc.py",
                    "infer/stream.py", "infer/stream_extract.py", "parallel/ddp.py",
-                   "utils/rng.py"):
+                   "utils/rng.py", "data/preprocess.py", "cli/preprocessing.py",
+                   "infer/serving.py", "cli/export.py", "cli/webui.py", "parallel/sharding.py"):
         assert os.path.isfile(os.path.join(pkg, module)), module
     bad = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|whisper_vits_svc_tpu)(?:\.|\s|$)",
                      re.M)
@@ -76,7 +77,7 @@ def test_kernel_modules_and_sources_stand_alone():
     for script in ("chip_smoke.py", "kink_flips.py", "strip_sweep.py", "sass_counts.py",
                    "snake_probe.py", "train_check_probe.py"):
         assert not bad.search(open(os.path.join(REPO, script), encoding="utf-8").read()), script
-    assert checked >= 40
+    assert checked >= 46
 
 
 def test_entry_points_keep_the_default_kernels(monkeypatch):
@@ -98,6 +99,13 @@ def test_entry_points_keep_the_default_kernels(monkeypatch):
     assert {m.exact_edges for m in fast.modules() if hasattr(m, "exact_edges")} == {False}
     assert all(not b.fused_iter for b in fast.dec.resblocks)
     assert list(fast.state_dict()) == list(model.state_dict())
+    # the serving artifact's graph is the default one: every snake on the
+    # direct kernel with exact edges (through svc::snake_alias on the card)
+    from whisper_vits_svc_tpu_torch.infer import serving
+
+    graph = serving._synthesis_graph(model.state_dict(), hp, None, torch.device("cpu"))
+    assert {(m.variant, m.exact_edges) for m in graph.modules()
+            if hasattr(m, "variant")} == {("direct", True)}
 
 
 def _tiny_hp():
@@ -296,3 +304,30 @@ def _options(entry) -> str:
     with contextlib.redirect_stdout(out), pytest.raises(SystemExit):
         entry(["--help"])
     return out.getvalue()
+
+
+def test_prep_export_webui_need_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
+    """cli.preprocessing, cli.export and cli.webui refuse to start without
+    CUDA before they read or write a file; so do the preprocessing driver,
+    the spectrogram buckets and the serving functions."""
+    from whisper_vits_svc_tpu_torch.cli import export, preprocessing, webui
+    from whisper_vits_svc_tpu_torch.data import preprocess
+    from whisper_vits_svc_tpu_torch.infer import serving
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main, argv in ((preprocessing.main, []), (preprocessing.main, ["--device", "cuda"]),
+                       (export.main, ["--checkpoint", "c.pth"]),
+                       (webui.main, ["--port", "0"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    assert os.listdir(tmp_path) == []
+    hp = _tiny_hp()
+    for call in (lambda: preprocess.preprocess("raw"),
+                 lambda: preprocess.compute_spec_bucketed(np.zeros(4000, np.float32),
+                                                          1024, 320, 1024),
+                 lambda: serving.build_synthesis_fn({}, hp),
+                 lambda: serving.export_synthesis({}, hp, "a.pt2")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert os.listdir(tmp_path) == []

@@ -302,6 +302,49 @@ def from_jax_speaker_encoder(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
+def _batch_norm(sd: dict, name: str, p: Mapping, eps: float = 1e-5) -> None:
+    """A JAX folded BatchNorm (scale, bias) as a torch BatchNorm in eval mode:
+    running mean 0 and running var 1 - eps, so that its fold, weight /
+    sqrt(var + eps), gives the scale back."""
+    scale = np.asarray(p["scale"], np.float32)
+    sd[f"{name}.weight"] = _t(scale)
+    sd[f"{name}.bias"] = _t(p["bias"])
+    sd[f"{name}.running_mean"] = torch.zeros(scale.shape)
+    sd[f"{name}.running_var"] = torch.full(scale.shape, 1.0 - eps)
+    sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _conv2d(sd: dict, name: str, p: Mapping) -> None:
+    sd[f"{name}.weight"] = _t(np.transpose(p["kernel"], (3, 2, 0, 1)))
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def from_jax_resnet_speaker(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ResNetSpeakerEncoder params -> the port's state_dict (the
+    reference's conv1 / bn1 / layer{i}.{j} / attention / fc keys)."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    _conv2d(sd, "conv1", tree["conv1"])
+    _batch_norm(sd, "bn1", tree["bn1"])
+    for key in sorted(k for k in tree if re.fullmatch(r"layer\d+_\d+", k)):
+        li, bi = key[len("layer"):].split("_")
+        b, p = f"layer{li}.{bi}", tree[key]
+        _conv2d(sd, f"{b}.conv1", p["conv1"])
+        _batch_norm(sd, f"{b}.bn1", p["bn1"])
+        _conv2d(sd, f"{b}.conv2", p["conv2"])
+        _batch_norm(sd, f"{b}.bn2", p["bn2"])
+        _linear(sd, f"{b}.se.fc.0", p["se_fc1"])
+        _linear(sd, f"{b}.se.fc.2", p["se_fc2"])
+        if "ds_conv" in p:
+            _conv2d(sd, f"{b}.downsample.0", p["ds_conv"])
+            _batch_norm(sd, f"{b}.downsample.1", p["ds_bn"])
+    _conv1d(sd, "attention.0", tree["att_conv1"])
+    _batch_norm(sd, "attention.2", tree["att_bn"])
+    _conv1d(sd, "attention.3", tree["att_conv2"])
+    _linear(sd, "fc", tree["fc"])
+    return sd
+
+
 def _silero_conv(sd: dict, name: str, w, b) -> None:
     sd[f"{name}.weight"], sd[f"{name}.bias"] = _t(w), _t(b)
 

@@ -238,8 +238,14 @@ def predict(model: Crepe, audio16k: np.ndarray, hop_length: int = 160, fmin: flo
             dither_rng: np.random.Generator | None = None) -> tuple[np.ndarray, np.ndarray]:
     """-> (pitch Hz [T], periodicity [T]) (torchcrepe predict, core.py:49)."""
     probs = crepe_probabilities(model, frame_audio(audio16k, hop_length), batch_size)
-    bins = viterbi_decode(viterbi_observations(probs, fmin, fmax),
-                          device=next(model.parameters()).device)
+    return _decode(probs, fmin, fmax, dither_rng, next(model.parameters()).device)
+
+
+def _decode(probs: np.ndarray, fmin: float, fmax: float,
+            dither_rng: np.random.Generator | None, device) -> tuple[np.ndarray, np.ndarray]:
+    """[N, 360] probabilities -> (pitch Hz [N], periodicity [N]): the Viterbi
+    path (on `device`), dithered cents, the path's probabilities."""
+    bins = viterbi_decode(viterbi_observations(probs, fmin, fmax), device=device)
     pitch = cents_to_frequency(bins_to_cents(bins, dither_rng)).astype(np.float32)
     periodicity = probs[np.arange(len(probs)), bins].astype(np.float32)
     return pitch, periodicity
@@ -257,8 +263,21 @@ def compute_f0(model: Crepe, audio16k: np.ndarray, rng: np.random.Generator | No
     """Train-prep F0 at hop 160 (prepare/preprocess_crepe.py:11-44):
     +0.001 sigma audio noise, median-7 periodicity, mean-5 pitch smoothing,
     pitch[periodicity < 0.5] = 0."""
-    pitch, peri = predict(model, _noisy(audio16k, rng), hop_length=160, dither_rng=rng,
-                          batch_size=batch_size)
+    probs = crepe_probabilities(model, train_frames(audio16k, rng), batch_size)
+    return f0_from_probabilities(probs, rng, next(model.parameters()).device)
+
+
+def train_frames(audio16k: np.ndarray, rng: np.random.Generator | None) -> np.ndarray:
+    """compute_f0's [N, 1024] frames: the audio with its noise drawn from
+    `rng`, framed at hop 160."""
+    return frame_audio(_noisy(audio16k, rng), 160)
+
+
+def f0_from_probabilities(probs: np.ndarray, rng: np.random.Generator | None,
+                          device) -> np.ndarray:
+    """compute_f0 from the probabilities of `train_frames`: the decode, its
+    dither drawn from the same `rng` after the noise, and the filters."""
+    pitch, peri = _decode(probs, 50.0, 1000.0, rng, device)
     peri = nan_median_filter(peri.astype(np.float64), 7)
     pitch = nan_mean_filter(pitch.astype(np.float64), 5)
     pitch = np.where(np.nan_to_num(peri) < 0.5, 0.0, np.nan_to_num(pitch))

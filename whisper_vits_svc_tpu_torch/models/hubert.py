@@ -224,15 +224,17 @@ def load_hubert_soft(ckpt_path: str, device: str | torch.device | None = "cuda")
     return model.to(dev).eval()
 
 
-def vec_window_batch(model: HubertSoft, windows: np.ndarray, n_samples: np.ndarray) -> np.ndarray:
+def vec_window_batch(model: HubertSoft, windows: np.ndarray, n_samples: np.ndarray,
+                     as_numpy: bool = True) -> np.ndarray | torch.Tensor:
     """[B, win] zero-padded audio rows + [B] real lengths -> [B, frames, 256]
     in one call on the model's device; rows valid to
-    hubert_num_frames(n_samples)."""
+    hubert_num_frames(n_samples). as_numpy=False returns the device tensor
+    without waiting for it (see whisper.ppg_window_batch)."""
     dev = next(model.parameters()).device
     with torch.inference_mode():
-        out = model(torch.as_tensor(windows, dtype=torch.float32).to(dev),
-                    torch.as_tensor(np.asarray(n_samples, np.int64), device=dev))
-        return out.cpu().numpy()
+        out = model(torch.as_tensor(windows, dtype=torch.float32).to(dev, non_blocking=True),
+                    torch.as_tensor(n_samples, dtype=torch.int64).to(dev, non_blocking=True))
+    return out.cpu().numpy() if as_numpy else out
 
 
 def pred_vec(model: HubertSoft, audio16k: np.ndarray, window_seconds: int = 20) -> np.ndarray:

@@ -4,7 +4,9 @@ speaker/models/lstm.py:8-101, speaker/utils/audio.py, config
 speaker_pretrain/config.json).
 
 3 x (LSTM-768 -> Linear-256 without bias), the last frame L2-normalised;
-`compute_embedding` averages 10 sliding 250-frame windows. The LSTM is
+`compute_embedding` averages 10 sliding 250-frame windows.
+`ResNetSpeakerEncoder` is the reference's alternative H/ASP SE-ResNet
+d-vector, which nothing calls. The LSTM is
 `nn.LSTM` (gate order i, f, g, o, the JAX scan's); with `lengths`, the
 state at each row's last real frame is taken, so right-zero-padded rows
 give their natural-length d-vectors (the LSTM is causal).
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from scipy.signal import lfilter
 from torch import nn
 
@@ -73,6 +76,102 @@ def load_speaker_encoder(ckpt_path: str, device: str | torch.device | None = "cu
     return model.to(dev).eval()
 
 
+# ------------------------------------------------------- ResNet alternative
+
+
+class SELayer(nn.Module):
+    """Squeeze-excite gate (reference speaker/models/resnet.py:8-23)."""
+
+    def __init__(self, channels: int, reduction: int = 8):
+        super().__init__()
+        self.fc = nn.Sequential(nn.Linear(channels, channels // reduction), nn.ReLU(),
+                                nn.Linear(channels // reduction, channels), nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.fc(x.mean(dim=(2, 3)))[:, :, None, None]
+
+
+class SEBasicBlock(nn.Module):
+    """Squeeze-excite ResNet block (reference speaker/models/resnet.py:26-56),
+    in the JAX package's order: conv, ReLU, BN, conv, BN, SE, + residual,
+    ReLU."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False,
+                 reduction: int = 8):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.se = SELayer(planes, reduction)
+        self.downsample = (nn.Sequential(nn.Conv2d(inplanes, planes, 1, stride=stride,
+                                                   bias=False), nn.BatchNorm2d(planes))
+                           if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn1(F.relu(self.conv1(x)))
+        out = self.se(self.bn2(self.conv2(out)))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class ResNetSpeakerEncoder(nn.Module):
+    """H/ASP SE-ResNet d-vector (reference speaker/models/resnet.py:59-180; JAX
+    whisper_vits_svc_tpu/models/speaker_encoder.py:156-220), the alternative
+    encoder, unused by the default pipeline there: kept for parity. Input
+    [B, T, input_dim] mel; output [B, proj_dim]. The BatchNorms run in eval
+    mode (running statistics), as the JAX package's folded affine does."""
+
+    def __init__(self, input_dim: int = 64, proj_dim: int = 512,
+                 layers: tuple[int, ...] = (3, 4, 6, 3),
+                 num_filters: tuple[int, ...] = (32, 64, 128, 256),
+                 encoder_type: str = "ASP", log_input: bool = False):
+        super().__init__()
+        assert encoder_type in ("SAP", "ASP"), encoder_type
+        self.encoder_type = encoder_type
+        self.log_input = log_input
+        self.conv1 = nn.Conv2d(1, num_filters[0], 3, padding=1)
+        self.bn1 = nn.BatchNorm2d(num_filters[0])
+        inplanes = num_filters[0]
+        for li, (blocks, planes) in enumerate(zip(layers, num_filters)):
+            stride = 1 if li == 0 else 2
+            down = stride != 1 or inplanes != planes
+            self.add_module(f"layer{li + 1}", nn.Sequential(*(
+                SEBasicBlock(inplanes if bi == 0 else planes, planes,
+                             stride if bi == 0 else 1, down and bi == 0)
+                for bi in range(blocks))))
+            inplanes = planes
+        self.n_layers = len(layers)
+        feat = num_filters[-1] * (-(-input_dim // 2 ** (len(layers) - 1)))
+        self.attention = nn.Sequential(nn.Conv1d(feat, 128, 1), nn.ReLU(), nn.BatchNorm1d(128),
+                                       nn.Conv1d(128, feat, 1), nn.Softmax(dim=2))
+        self.fc = nn.Linear(feat * (2 if encoder_type == "ASP" else 1), proj_dim)
+
+    def forward(self, x: torch.Tensor, l2_norm: bool = False) -> torch.Tensor:
+        if self.log_input:
+            x = torch.log(x + 1e-6)
+        # instance norm over time per mel bin (torch InstanceNorm1d on [B, D, T])
+        mean = x.mean(dim=1, keepdim=True)
+        var = x.var(dim=1, unbiased=False, keepdim=True)
+        x = (x - mean) / torch.sqrt(var + 1e-5)
+        h = self.bn1(F.relu(self.conv1(x.transpose(1, 2)[:, None])))  # [B, 1, D, T]
+        for li in range(self.n_layers):
+            h = getattr(self, f"layer{li + 1}")(h)
+        feat = h.reshape(h.shape[0], -1, h.shape[-1])  # [B, C * D', T']
+        w = self.attention(feat)
+        mu = torch.sum(feat * w, dim=2)
+        if self.encoder_type == "SAP":
+            pooled = mu
+        else:
+            var = torch.sum(feat.square() * w, dim=2) - mu.square()
+            sg = torch.sqrt(torch.clamp(var, min=1e-5))
+            pooled = torch.cat([mu, sg], dim=1)
+        out = self.fc(pooled)
+        if l2_norm:
+            out = out / torch.linalg.vector_norm(out, dim=-1, keepdim=True).clamp_min(1e-12)
+        return out
+
+
 # ---------------------------------------------------------------- frontend
 
 SR = 16000
@@ -121,17 +220,20 @@ def speaker_melspectrogram(audio: np.ndarray) -> np.ndarray:
 
 
 def embed_windows(model: LSTMSpeakerEncoder, batch: np.ndarray, n_utts: int,
-                  lengths: np.ndarray | None = None) -> np.ndarray:
+                  lengths: np.ndarray | None = None,
+                  as_numpy: bool = True) -> np.ndarray | torch.Tensor:
     """[n_utts * 10, nf, 80] mel windows of many utterances -> [n_utts, d]:
     each utterance's mean over its 10 window d-vectors, on the model's
     device. lengths [n_utts * 10] marks the real frames of right-zero-padded
-    rows."""
+    rows (the JAX package's _spk_batch_program). as_numpy=False returns the
+    device tensor without waiting for it (see whisper.ppg_window_batch)."""
     dev = next(model.parameters()).device
     with torch.inference_mode():
-        emb = model(torch.as_tensor(batch, dtype=torch.float32).to(dev),
+        emb = model(torch.as_tensor(batch, dtype=torch.float32).to(dev, non_blocking=True),
                     None if lengths is None
-                    else torch.as_tensor(np.asarray(lengths, np.int64), device=dev))
-        return emb.reshape(n_utts, -1, emb.shape[-1]).mean(dim=1).cpu().numpy()
+                    else torch.as_tensor(lengths, dtype=torch.int64).to(dev, non_blocking=True))
+        out = emb.reshape(n_utts, -1, emb.shape[-1]).mean(dim=1)
+    return out.cpu().numpy() if as_numpy else out
 
 
 def compute_embedding(model: LSTMSpeakerEncoder, audio16k: np.ndarray, num_frames: int = 250,

@@ -77,20 +77,22 @@ class WhisperAttention(nn.Module):
         self.out = nn.Linear(n_state, n_state)
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor | None = None) -> torch.Tensor:
-        b, t, n_state = x.shape
-        hd = n_state // self.n_head
+        b, t, _ = x.shape
+        q = self.query(x)
+        width = q.shape[-1]  # n_state, or a tensor-parallel rank's share of the heads
+        hd = width // self.n_head
         scale = hd**-0.25
 
         def heads(y):
             return y.view(b, t, self.n_head, hd).transpose(1, 2)
 
-        qk = (heads(self.query(x)) * scale) @ (heads(self.key(x)) * scale).transpose(-1, -2)
+        qk = (heads(q) * scale) @ (heads(self.key(x)) * scale).transpose(-1, -2)
         if key_mask is not None:
             # padded keys excluded: real queries attend over exactly the keys
             # of a natural-length run
             qk = qk.masked_fill(~key_mask[:, None, None, :], -1e9)
         out = torch.softmax(qk, dim=-1) @ heads(self.value(x))
-        return self.out(out.transpose(1, 2).reshape(b, t, n_state))
+        return self.out(out.transpose(1, 2).reshape(b, t, width))
 
 
 class WhisperBlock(nn.Module):
@@ -174,21 +176,30 @@ def load_whisper_encoder(ckpt_path: str, device: str | torch.device | None = "cu
 
 
 def ppg_window_batch(model: WhisperEncoder, windows: np.ndarray, n_samples: np.ndarray,
-                     rng: torch.Generator | None = None) -> np.ndarray:
-    """[B, WINDOW_SAMPLES] zero-padded windows + [B] real lengths -> PPG
-    [B, WINDOW_SAMPLES // PPG_HOP, n_state] (rows valid to n_samples // 320),
-    in one call on the model's device.
+                     rng: torch.Generator | None = None,
+                     as_numpy: bool = True) -> np.ndarray | torch.Tensor:
+    """[B, W] zero-padded windows (W = WINDOW_SAMPLES, or a shorter bucket of
+    the preprocessing driver) + [B] real lengths -> PPG [B, W // PPG_HOP,
+    n_state] (rows valid to n_samples // 320), in one call on the model's
+    device.
 
     rng (a CPU torch.Generator) adds the inference-time 0.1-sigma mel noise,
     drawn on the CPU so that the card and the CPU get the same noise; None
-    is the training-prep path (prepare/preprocess_ppg.py:34-38)."""
+    is the training-prep path (prepare/preprocess_ppg.py:34-38).
+    as_numpy=False returns the device tensor without waiting for it, so the
+    caller can keep several batches in flight and read each with .cpu()
+    later; the inputs go up with non-blocking copies, which stay
+    asynchronous when they are pinned CPU tensors (the caller must then not
+    write to them again: the preprocessing driver fills fresh ones)."""
     dev = next(model.parameters()).device
-    lens = torch.as_tensor(np.asarray(n_samples, np.int64), device=dev)
+    lens = torch.as_tensor(n_samples, dtype=torch.int64).to(dev, non_blocking=True)
     with torch.inference_mode():
-        mel = log_mel_spectrogram(torch.as_tensor(windows, dtype=torch.float32).to(dev), lens)
+        mel = log_mel_spectrogram(
+            torch.as_tensor(windows, dtype=torch.float32).to(dev, non_blocking=True), lens)
         if rng is not None:
             mel = mel + (torch.randn(mel.shape, generator=rng) * MEL_NOISE).to(dev)
-        return model(mel, lens // HOP_LENGTH).cpu().numpy()
+        out = model(mel, lens // HOP_LENGTH)
+    return out.cpu().numpy() if as_numpy else out
 
 
 def pred_ppg(model: WhisperEncoder, audio16k: np.ndarray,

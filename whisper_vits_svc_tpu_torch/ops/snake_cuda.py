@@ -31,7 +31,10 @@ one (e.g. under torch.inference_mode) it launches the forward alone.
 (narrow, long shapes cut into segments that fill the card once; bitwise
 equal to "direct") or "mma" (the direct kernel's plan and phases, the down
 FIRs as 3xTF32 products on the tensor cores). The two alternatives are
-forward only, as in the JAX package. `launches`, `launches_bwd`,
+forward only, as in the JAX package. Without a gradient the direct
+forward goes through the operator `svc::snake_alias` (`snake_alias_op`),
+which torch.export keeps as one node: the serving artifact
+(infer/serving.py) runs the kernel too. `launches`, `launches_bwd`,
 `launches_strips` and `launches_mma` count kernel launches.
 """
 
@@ -486,20 +489,36 @@ def _wants_grad(variant: str, x: torch.Tensor, alpha: torch.Tensor,
     return grad
 
 
+@torch.library.custom_op("svc::snake_alias", mutates_args=())
+def snake_alias_op(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """The direct forward kernel as the operator `torch.ops.svc.snake_alias`
+    (one launch of `snake_alias_cuda`), so that torch.export records it as
+    one node of a graph where it cannot trace the ctypes call: a serving
+    artifact keeps the kernel, and finds this operator by name once this
+    module is imported before torch.export.load."""
+    return snake_alias_cuda(x, alpha, beta)
+
+
+@snake_alias_op.register_fake
+def _snake_alias_fake(x, alpha, beta):
+    return torch.empty_like(x)
+
+
 def snake_alias_kernel(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                        variant: str = "direct") -> torch.Tensor:
     """The kernel route: through SnakeAliasFunction when autograd records a
     graph for any input (variant "direct" only: the others have no
-    backward), else one forward launch of the variant's kernel. "strips"
-    takes the shapes `use_strips` names and leaves the others to the direct
-    kernel; "mma" takes every shape."""
+    backward), else one forward launch of the variant's kernel, the direct
+    one through `snake_alias_op`. "strips" takes the shapes `use_strips`
+    names and leaves the others to the direct kernel; "mma" takes every
+    shape."""
     if _wants_grad(variant, x, alpha, beta):
         return SnakeAliasFunction.apply(x, alpha, beta)
     if variant == "mma":
         return snake_alias_mma_cuda(x, alpha, beta)
     if variant == "strips" and use_strips(x.shape[1], x.shape[2], x.shape[0]):
         return snake_alias_strips_cuda(x, alpha, beta)
-    return snake_alias_cuda(x, alpha, beta)
+    return snake_alias_op(x, alpha, beta)
 
 
 def snake_alias(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,

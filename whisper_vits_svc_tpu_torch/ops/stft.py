@@ -56,12 +56,25 @@ def _windowed_dft(n_fft: int, win_length: int, window: str) -> np.ndarray:
     return (w_full[:, None] * basis).astype(np.float32)
 
 
+def _tracing() -> bool:
+    c = torch.compiler
+    return c.is_compiling() or bool(getattr(c, "is_exporting", lambda: False)())
+
+
 def _on(device: torch.device, key: tuple, make, dtype=torch.float32) -> torch.Tensor:
     """A constant built once per device and dtype (the n_fft=4096 basis is
-    67 MB in float32)."""
+    67 MB in float32), outside inference mode, so that a constant first made
+    under torch.inference_mode (preprocessing, extraction) still serves a
+    later training step's autograd. Under torch.export's tracing the
+    constant is built for the trace and not cached: the trace's tensors are
+    fake, and a later eager call must not read them."""
     k = (str(device), dtype) + key
     if k not in _device_cache:
-        _device_cache[k] = torch.from_numpy(make()).to(device=device, dtype=dtype)
+        with torch.inference_mode(False):
+            t = torch.from_numpy(make()).to(device=device, dtype=dtype)
+        if _tracing():
+            return t
+        _device_cache[k] = t
     return _device_cache[k]
 
 

@@ -1,8 +1,9 @@
 """Config tree: a dot-access dict, loaded from the repo's YAML configs.
 
-PyYAML is imported only inside `load_config`, and only for a YAML file, so
-code that builds a config from a dict (`config_from_dict`,
-`BASE_MODEL_CONFIG`) or reads a `.json` config runs without it.
+PyYAML is imported only inside `load_config` and `dump_config`, and only for
+a YAML file, so code that builds a config from a dict (`config_from_dict`,
+`BASE_MODEL_CONFIG`), reads a `.json` config or edits one
+(`edit_config_file`) runs without it.
 """
 
 from __future__ import annotations
@@ -49,6 +50,87 @@ def load_config(path: str) -> Config:
 def config_from_dict(d: Mapping) -> Config:
     """A new Config tree (dicts and lists rebuilt, so `d` is not aliased)."""
     return Config._wrap(d)
+
+
+def _plain(obj: Any) -> Any:
+    if isinstance(obj, Mapping):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_plain(v) for v in obj]
+    return obj
+
+
+def dump_config(cfg: Mapping) -> str:
+    """The tree as YAML text in its key order, without "raw"."""
+    import yaml
+
+    d = _plain(cfg)
+    d.pop("raw", None)
+    return yaml.safe_dump(d, sort_keys=False)
+
+
+def edit_config_file(src: str, dst: str, updates: Mapping[str, Mapping[str, Any]]) -> str:
+    """Rewrite `section.key: value` scalars of the 2-level config `src` into
+    `dst`, keeping every comment, blank line, quote and the key order (the
+    WebUI's train.yaml edit; reference app.py:169-180 does it with ruamel).
+
+    updates: {"train": {"learning_rate": 1e-4, ...}, "log": {...}}. Returns
+    the text written. Raises KeyError if a key is not found in its section.
+    A `.json` file is loaded, updated and dumped in its own key order (the
+    card's machine has no PyYAML, so a config there is JSON)."""
+    with open(src, "r") as f:
+        raw = f.read()
+    if src.endswith(".json"):
+        text = _edit_json(src, raw, updates)
+    else:
+        text = _edit_yaml_lines(src, raw, updates)
+    with open(dst, "w") as f:
+        f.write(text)
+    return text
+
+
+def _edit_json(src: str, raw: str, updates: Mapping[str, Mapping[str, Any]]) -> str:
+    tree = json.loads(raw)
+    missing = {s: [k for k in kv if k not in tree.get(s, {})] for s, kv in updates.items()}
+    missing = {s: ks for s, ks in missing.items() if ks}
+    if missing:
+        raise KeyError(f"keys not found in {src}: {missing}")
+    for section, kv in updates.items():
+        tree[section].update(kv)
+    return json.dumps(tree, indent=2) + "\n"
+
+
+def _edit_yaml_lines(src: str, raw: str, updates: Mapping[str, Mapping[str, Any]]) -> str:
+    """The line edit of the JAX package's `edit_config_file`, byte for byte."""
+    lines = raw.split("\n")
+    pending = {s: dict(kv) for s, kv in updates.items() if kv}
+    section = None
+    for i, line in enumerate(lines):
+        stripped = line.split("#", 1)[0].rstrip()
+        if stripped and not line[:1].isspace() and stripped.endswith(":"):
+            section = stripped[:-1]
+            continue
+        if section in pending and line[:1].isspace() and ":" in stripped:
+            key = stripped.split(":", 1)[0].strip()
+            if key in pending[section]:
+                value = pending[section].pop(key)
+                if isinstance(value, str):
+                    value_s = f'"{value}"'
+                elif isinstance(value, bool):
+                    value_s = "true" if value else "false"
+                else:
+                    value_s = repr(value)
+                indent = line[: len(line) - len(line.lstrip())]
+                comment = ""
+                if "#" in line:
+                    comment = "  #" + line.split("#", 1)[1]
+                lines[i] = f"{indent}{key}: {value_s}{comment}"
+                if not pending[section]:
+                    del pending[section]
+    leftover = {s: list(kv) for s, kv in pending.items()}
+    if leftover:
+        raise KeyError(f"keys not found in {src}: {leftover}")
+    return "\n".join(lines)
 
 
 # The train/data/vits/gen/mpd/mrd/log sections of configs/base.yaml, for callers
