@@ -41,6 +41,21 @@ Phases (any failure exits non-zero without the final line):
 6. card vs CPU: the 2 s request (out_chunk=200) on the card and on the CPU,
    compared at float32 tolerance, which TF32 convolutions are expected to
    exceed;
+6b. [fold-wn]: the seeded weight-norm checkpoint written to a temporary
+   .pth and loaded into a model built with fold_wn=True (every weight-norm
+   pair folded into a plain kernel on the way in); the three requests
+   through it (91 B1 launches a chunk), each waveform within 5e-5 of the
+   weight-norm model's; wall ms per chunk of both models in ABBA turns and
+   one profiled chunk of each (device busy ms, device ops);
+6c. [device-trace]: utils/device_trace.py over one chunk of svc_infer:
+   measure_device_ms(fn, "snake_alias"), B1's launches and total in one
+   torch.profiler trace (as many traced kernels as launches counted), then
+   the chunk's B1 launches replayed on their captured inputs and timed by
+   CUDA events and by the trace (within 0.5-2x of each other);
+6d. [med]: MelspecDiscriminator (unwired, as in the JAX package) with
+   seeded weights and BatchNorm statistics on a [16, 48000, 1] batch, the
+   card against the CPU (each feature map and the scores within 2e-5 of
+   their largest entry), ms per call and one profiled call;
 7. training steps: `init_train_states` + `make_train_step` at full
    configs/base.yaml width (batch 16, accum_step 2) on synthetic 300-frame
    utterances; one warm-up step, then 4 timed steps; checks finite losses
@@ -242,10 +257,13 @@ from whisper_vits_svc_tpu_torch.parallel import sharding
 from whisper_vits_svc_tpu_torch.train import checkpoint as tckpt
 from whisper_vits_svc_tpu_torch.train import loop as tloop
 from whisper_vits_svc_tpu_torch.train import step as tstep
+from whisper_vits_svc_tpu_torch.models.discriminator import MelspecDiscriminator
 from whisper_vits_svc_tpu_torch.utils import audio_io
+from whisper_vits_svc_tpu_torch.utils import device_trace
 from whisper_vits_svc_tpu_torch.utils.audio_io import save_wav
 from whisper_vits_svc_tpu_torch.utils.config import BASE_MODEL_CONFIG, config_from_dict
 from whisper_vits_svc_tpu_torch.utils.device import resolve_device
+from whisper_vits_svc_tpu_torch.utils.profiling import StepTimer, trace
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, float32 outside
 # the tensor cores
@@ -3447,6 +3465,200 @@ def report_resnet(rs: dict, smi: str) -> None:
           + f" | {smi}", flush=True)
 
 
+FOLD_TURNS = 3     # ABBA turns of the three requests, weight norm against folded
+MED_SHAPE = (16, 48000, 1)  # a batch of 1 s items at 48 kHz
+MED_REL = 2e-5     # card vs CPU, each feature map and the scores, of its largest entry
+MED_CALLS = 10
+TRACE_RATIO = (0.5, 2.0)  # torch.profiler's B1 time over CUDA events', same launches
+
+
+def chunks_of(reqs) -> int:
+    return sum(len(pipeline._chunk_plan(len(r[1]), 1000, 10)) for r in reqs)
+
+
+def fold_wn_phase(hp, model, reqs, wn_audio, device="cuda", n_snakes: int = 91) -> dict:
+    """[fold-wn]: the seeded weight-norm checkpoint loaded into a model built
+    with fold_wn=True (folded on the way in), svc_infer over the requests
+    against the weight-norm model's waveforms, then both models' ms per chunk
+    in ABBA turns and (on the card) one profiled chunk each."""
+    with tempfile.TemporaryDirectory(prefix="svc_fold_") as d:
+        path = os.path.join(d, "g.pth")
+        torch.save({"model_g": model.state_dict()}, path)
+        folded = pipeline.load_svc_model(
+            path, pipeline.build_infer_model(hp, device=device, seed=1, fold_wn=True))
+    left = [k for k in folded.state_dict() if k.endswith(("weight_g", "weight_v"))]
+    check(not left, f"weight-norm parameters left after folding: {left[:3]}")
+    run = dict(hp=hp, device=device)
+    pipeline.svc_infer(folded, DummyRetrieval(), *reqs[-1], **run)  # warm-up
+    sync(device)
+    reset_counts()
+    outs = [pipeline.svc_infer(folded, DummyRetrieval(), *r, **run) for r in reqs]
+    sync(device)
+    counts = read_counts()
+    chunks = chunks_of(reqs)
+    check(counts["direct"] == n_snakes * chunks and counts["bwd"] == 0,
+          f"[fold-wn] {counts} snake launches for {chunks} chunks, expected {n_snakes} a chunk")
+    err = max(float(np.abs(o - w).max()) for o, w in zip(outs, wn_audio))
+    check(err <= CARD_VS_CPU_ATOL, f"folded against weight norm: max abs err {err}")
+
+    def walk(m) -> float:
+        t0 = time.perf_counter()
+        for r in reqs:
+            pipeline.svc_infer(m, DummyRetrieval(), *r, **run)
+        sync(device)
+        return 1e3 * (time.perf_counter() - t0) / chunks
+
+    ms = {"weight_norm": [], "folded": []}
+    for _ in range(FOLD_TURNS):
+        for key, m in (("weight_norm", model), ("folded", folded), ("folded", folded),
+                       ("weight_norm", model)):
+            ms[key].append(walk(m))
+    out = dict(counts=counts, err=err, ms=ms, chunks=chunks,
+               pairs=sum(k.endswith("weight_g") for k in model.state_dict()))
+    if torch.device(device).type == "cuda":
+        out["profile"] = {key: profile(lambda m=m: pipeline.svc_infer(
+            m, DummyRetrieval(), *reqs[-1], **run)) for key, m in
+            (("weight_norm", model), ("folded", folded))}
+    return out
+
+
+def report_fold_wn(fw: dict, smi: str) -> None:
+    med = {k: float(np.median(v)) for k, v in fw["ms"].items()}
+    line = (f"[fold-wn] {fw['pairs']} weight-norm pairs folded once at load; "
+            f"{fw['counts']['direct']} B1 launches in {fw['chunks']} chunks; waveform against "
+            f"the weight-norm run max abs err {fw['err']:.3e} (tolerance {CARD_VS_CPU_ATOL}); "
+            f"wall ms per chunk over {FOLD_TURNS} ABBA turns: weight norm "
+            f"{spread(fw['ms']['weight_norm'])}, folded {spread(fw['ms']['folded'])}, "
+            f"x{med['weight_norm'] / med['folded']:.3f}")
+    for key, prof in fw.get("profile", {}).items():
+        line += (f"; {key} one profiled chunk: wall {prof['wall_ms']:.2f} ms, device busy "
+                 f"{prof['busy_ms']:.2f} ms, {sum(prof['counts'].values())} device ops "
+                 f"(elementwise {prof['counts']['elementwise']}, reduction "
+                 f"{prof['counts']['reduction']})")
+    print(line + f" | {smi}", flush=True)
+
+
+def device_trace_phase(hp, model, req, device="cuda") -> dict:
+    """[device-trace]: utils/device_trace.py over one chunk of svc_infer: B1's
+    device ms per launch (measure_device_ms), its launches and total in one
+    trace, the chunk's kernels in all; then the chunk's B1 launches replayed
+    on their captured inputs, timed by CUDA events and by the trace."""
+    run = dict(hp=hp, device=device)
+
+    def one_chunk():
+        pipeline.svc_infer(model, DummyRetrieval(), *req, **run)
+
+    captured = []
+    orig = snake_cuda.snake_alias_cuda
+
+    def capture(x, alpha, beta):
+        captured.append((x.clone(), alpha.clone(), beta.clone()))
+        return orig(x, alpha, beta)
+
+    snake_cuda.snake_alias_cuda = capture
+    try:
+        one_chunk()
+    finally:
+        snake_cuda.snake_alias_cuda = orig
+    sync(device)
+    reset_counts()
+    per_call = device_trace.measure_device_ms(one_chunk, "snake_alias")
+    counts = read_counts()
+    timer, on_card = StepTimer(window=1), torch.zeros(1, device=device)
+    with tempfile.TemporaryDirectory(prefix="svc_trace_") as d:
+        with trace(d):
+            timer.start()
+            one_chunk()
+            timer.stop(on_card)  # waits for the card
+        mean = device_trace.device_ms_per_call(d, "snake_alias")
+        total = device_trace.device_total_ms(d, ("snake_alias",))
+        chunk_total = device_trace.device_total_ms(d, ("",))
+    check(per_call is not None and mean is not None and per_call > 0,
+          f"no snake_alias kernel in the trace (per call {per_call}, mean {mean})")
+    traced = round(total / mean)
+    check(traced == counts["direct"] == len(captured),
+          f"{traced} traced B1 kernels, {counts['direct']} launches, {len(captured)} captured")
+
+    def replay(i=0):
+        for x, a, b in captured:
+            snake_cuda.snake_alias_cuda(x, a, b)
+
+    events_ms = cuda_ms(replay, 5)
+    traced_replay = device_trace.measure_device_total_ms(replay, ("snake_alias",))
+    ratio = traced_replay / events_ms
+    check(TRACE_RATIO[0] <= ratio <= TRACE_RATIO[1],
+          f"the trace's B1 time {traced_replay:.4f} ms against CUDA events {events_ms:.4f} ms")
+    return dict(counts=counts, per_call=per_call, mean=mean, total=total, traced=traced,
+                chunk_total=chunk_total, wall_ms=1e3 * timer.mean, events_ms=events_ms,
+                traced_replay=traced_replay, ratio=ratio)
+
+
+def report_device_trace(dt: dict, smi: str) -> None:
+    print(f"[device-trace] one {CHUNK_FRAMES}-frame chunk of svc_infer: measure_device_ms("
+          f"'snake_alias') {1e3 * dt['per_call']:.2f} us per launch; in one trace "
+          f"{dt['traced']} B1 kernels ({dt['counts']['direct']} launches counted), mean "
+          f"{1e3 * dt['mean']:.2f} us, total {dt['total']:.4f} ms of the chunk's "
+          f"{dt['chunk_total']:.3f} ms of kernels in {dt['wall_ms']:.2f} ms wall (StepTimer); "
+          f"the same {dt['traced']} launches replayed on their captured inputs: CUDA events "
+          f"{dt['events_ms']:.4f} ms, trace {dt['traced_replay']:.4f} ms (x{dt['ratio']:.3f}) "
+          f"| {smi}", flush=True)
+
+
+def med_phase(device="cuda", shape=MED_SHAPE) -> dict:
+    """[med]: MelspecDiscriminator with seeded weights (BatchNorm statistics
+    perturbed) in eval mode on `device` against the CPU on 0.2 x N(0, 1)
+    audio: each feature map and the scores within MED_REL of their largest
+    entry; ms per call and (on the card) its device time."""
+    g = torch.Generator().manual_seed(91)
+    cpu = MelspecDiscriminator()
+    cpu.init_weights(g)
+    with torch.no_grad():
+        for block in cpu._convs:
+            bn = block[1]
+            for t, lo, hi in ((bn.weight, 0.5, 1.5), (bn.running_var, 0.5, 1.5),
+                              (bn.bias, -0.1, 0.1), (bn.running_mean, -0.1, 0.1)):
+                t.uniform_(lo, hi, generator=g)
+    cpu.eval()
+    card = MelspecDiscriminator().eval()
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    card.to(device)
+    x = 0.2 * torch.randn(shape, generator=g)
+    x_dev = x.to(device)
+    reset_counts()
+    with torch.inference_mode():
+        ((f_card, s_card),) = card(x_dev)
+        sync(device)
+        counts = read_counts()
+        ((f_cpu, s_cpu),) = cpu(x)
+        errs = [float((a.cpu() - b).abs().max() / b.abs().max())
+                for a, b in zip(f_card + [s_card], f_cpu + [s_cpu])]
+        check(s_card.shape == (shape[0],) and len(f_card) == 4
+              and all(bool(torch.isfinite(f).all()) for f in f_card + [s_card]),
+              f"[med] output shapes {[tuple(f.shape) for f in f_card]}, {tuple(s_card.shape)}")
+        check(max(errs) <= MED_REL, f"[med] card vs CPU relative errors {errs}")
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(MED_CALLS):
+            card(x_dev)
+        sync(device)
+        ms = 1e3 * (time.perf_counter() - t0) / MED_CALLS
+        prof = profile(lambda: card(x_dev)) if torch.device(device).type == "cuda" else None
+    return dict(errs=errs, ms=ms, counts=counts, shape=list(shape),
+                fmap_shapes=[list(f.shape) for f in f_card], prof=prof)
+
+
+def report_med(md: dict, smi: str) -> None:
+    prof = md["prof"]
+    print(f"[med] MelspecDiscriminator on {md['shape']}: feature maps {md['fmap_shapes']}, "
+          f"card vs CPU max error over each map's largest entry "
+          f"{[float(f'{e:.3e}') for e in md['errs']]} (bound {MED_REL}); "
+          f"{md['ms']:.2f} ms per call over {MED_CALLS}"
+          + (f", one profiled call: wall {prof['wall_ms']:.2f} ms, device busy "
+             f"{prof['busy_ms']:.2f} ms, device ms by kind "
+             + json.dumps({k: round(v, 3) for k, v in prof["kinds"].items() if v})
+             if prof else "") + f" | {smi}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3546,11 +3758,13 @@ def main() -> int:
     torch.cuda.synchronize()
     reset_counts()
     total_chunks, total_audio_s, total_wall_s = 0, 0.0, 0.0
+    req_audio = []
     for frames, (spk, pit, ppg, vec) in zip(REQUEST_FRAMES, reqs):
         t0 = time.perf_counter()
         audio = pipeline.svc_infer(model, DummyRetrieval(), spk, pit, ppg, vec, **run)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        req_audio.append(audio)
         chunks = len(pipeline._chunk_plan(frames, 1000, 10))
         audio_s = frames * hp.data.hop_length / hp.data.sampling_rate
         rms = float(np.sqrt(np.mean(np.square(audio))))
@@ -3593,6 +3807,15 @@ def main() -> int:
     print(f"[card-vs-cpu] 200 frames: max abs err {err:.3e} (tolerance {CARD_VS_CPU_ATOL}), "
           f"cpu {cpu_s:.2f} s", flush=True)
     check(err <= CARD_VS_CPU_ATOL, f"card vs CPU max abs err {err}")
+
+    # weight norm folded once at load, on the same seeded checkpoint and
+    # features; B1's device time from the trace; the 48 kHz mel discriminator
+    fw = fold_wn_phase(hp, model, reqs, req_audio)
+    report_fold_wn(fw, smi)
+    dt = device_trace_phase(hp, model, reqs[-1])
+    report_device_trace(dt, smi)
+    md = med_phase()
+    report_med(md, smi)
 
     # the three alternative configurations of the same weights
     alt_runs = alt_config_phase(hp, model, cpu_model, reqs[-1], cpu)
@@ -3729,7 +3952,8 @@ def main() -> int:
     report_resnet(resnet_phase(), smi)
     flow = {"prep_train": pf["train_counts"], "prep_artifact_check": pf["kernel_counts"],
             "prep_artifact": pf["artifact_counts"],
-            "prep_infer": pf["infer"]["counts"], "webui": wu["counts"]}
+            "prep_infer": pf["infer"]["counts"], "webui": wu["counts"],
+            "fold_wn": fw["counts"], "device_trace": dt["counts"], "med": md["counts"]}
 
     kernels = [{
         "name": "snake_alias", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
@@ -3738,6 +3962,7 @@ def main() -> int:
                            + stream_rows if r["dtype"] == "float32"),
         "ms": per_chunk["ms"], "plain_ms": per_chunk["plain_ms"],
         "bound_ms": per_chunk["bound_ms"], "bound_by": bound_by, "library_ms": None,
+        "trace_ms_per_call": dt["per_call"], "trace_ms_per_chunk": dt["total"],
         "per": f"one {CHUNK_FRAMES}-frame chunk at base width, float32, {n_calls} calls",
         "launches_by_path": {"svc_infer": launches, "train_step": train_fwd,
                              "train_loop": loop_run["train_fwd"],

@@ -62,7 +62,9 @@ def test_kernel_modules_and_sources_stand_alone():
                    "models/silero_vad.py", "infer/post.py", "infer/tools.py", "cli/misc.py",
                    "infer/stream.py", "infer/stream_extract.py", "parallel/ddp.py",
                    "utils/rng.py", "data/preprocess.py", "cli/preprocessing.py",
-                   "infer/serving.py", "cli/export.py", "cli/webui.py", "parallel/sharding.py"):
+                   "infer/serving.py", "cli/export.py", "cli/webui.py", "parallel/sharding.py",
+                   "utils/profiling.py", "utils/device_trace.py", "models/discriminator.py",
+                   "nn/conv.py"):
         assert os.path.isfile(os.path.join(pkg, module)), module
     bad = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|whisper_vits_svc_tpu)(?:\.|\s|$)",
                      re.M)
@@ -77,7 +79,7 @@ def test_kernel_modules_and_sources_stand_alone():
     for script in ("chip_smoke.py", "kink_flips.py", "strip_sweep.py", "sass_counts.py",
                    "snake_probe.py", "train_check_probe.py"):
         assert not bad.search(open(os.path.join(REPO, script), encoding="utf-8").read()), script
-    assert checked >= 46
+    assert checked >= 48
 
 
 def test_entry_points_keep_the_default_kernels(monkeypatch):
@@ -106,6 +108,60 @@ def test_entry_points_keep_the_default_kernels(monkeypatch):
     graph = serving._synthesis_graph(model.state_dict(), hp, None, torch.device("cpu"))
     assert {(m.variant, m.exact_edges) for m in graph.modules()
             if hasattr(m, "variant")} == {("direct", True)}
+
+
+def test_new_modules_run_without_jax():
+    """The profiling hooks, the device-trace readers, the weight-norm fold and
+    the mel discriminator run in a process with jax, flax and the JAX package
+    made unimportable."""
+    probe = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "whisper_vits_svc_tpu"):
+    sys.modules[name] = None
+import tempfile
+import torch
+from whisper_vits_svc_tpu_torch.infer.pipeline import source2wav
+from whisper_vits_svc_tpu_torch.models.discriminator import MelspecDiscriminator
+from whisper_vits_svc_tpu_torch.nn.conv import Conv1d, fold_weight_norm
+from whisper_vits_svc_tpu_torch.utils import device_trace
+from whisper_vits_svc_tpu_torch.utils.profiling import StepTimer, annotate, trace
+c = Conv1d(2, 3, 3, weight_norm=True)
+c.init_weights(torch.Generator().manual_seed(0))
+f = Conv1d(2, 3, 3, weight_norm=True)
+f.load_state_dict(fold_weight_norm(c.state_dict()))
+x = torch.randn(1, 2, 9)
+assert torch.equal(f(x), c(x)) and not f.weight_norm
+m = MelspecDiscriminator().eval()
+m.init_weights(torch.Generator().manual_seed(0))
+((fmap, score),) = m(torch.randn(1, 24000, 1))
+assert score.shape == (1,) and len(fmap) == 4
+with tempfile.TemporaryDirectory() as d:
+    with trace(d), annotate("r"):
+        t = StepTimer(2)
+        t.start()
+        t.stop(x)
+    assert device_trace.device_ms_per_call(d, "snake_alias") is None
+assert source2wav(x.numpy()).dtype.name == "int16"
+print("OK")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "OK", res.stdout
+
+
+def test_build_infer_model_folds_only_when_asked(monkeypatch):
+    """build_infer_model keeps weight norm by default; fold_wn=True folds
+    every pair into a plain kernel and keeps the kernels' switches."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hp = _tiny_hp()
+    model = pipeline.build_infer_model(hp, device="cpu")
+    assert any(k.endswith("weight_g") for k in model.state_dict())
+    folded = pipeline.build_infer_model(hp, device="cpu", fold_wn=True, snake_variant="mma")
+    assert not any(k.endswith(("weight_g", "weight_v")) for k in folded.state_dict())
+    assert {m.variant for m in folded.modules() if hasattr(m, "variant")} == {"mma"}
 
 
 def _tiny_hp():

@@ -20,6 +20,7 @@ from whisper_vits_svc_tpu.nn.attention import RelPosTransformer as JRelPos
 from whisper_vits_svc_tpu.nn.conv import Conv1d as JConv1d
 from whisper_vits_svc_tpu.nn.conv import ConvTranspose1d as JConvT
 from whisper_vits_svc_tpu.nn.flow import ResidualCouplingBlock as JFlow
+from whisper_vits_svc_tpu.nn.flow import flip as j_flip
 from whisper_vits_svc_tpu.nn.nsf import source_hn_nsf as j_source_hn_nsf
 from whisper_vits_svc_tpu.utils.pitch import f0_to_coarse as j_f0_to_coarse
 from whisper_vits_svc_tpu.utils.testing import tiny_hp
@@ -29,7 +30,7 @@ from whisper_vits_svc_tpu_torch.models.synthesizer import TextEncoder
 from whisper_vits_svc_tpu_torch.nn.amp import AMPBlock
 from whisper_vits_svc_tpu_torch.nn.attention import RelPosTransformer
 from whisper_vits_svc_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
-from whisper_vits_svc_tpu_torch.nn.flow import ResidualCouplingBlock
+from whisper_vits_svc_tpu_torch.nn.flow import Flip, ResidualCouplingBlock, flip
 from whisper_vits_svc_tpu_torch.nn.nsf import source_hn_nsf
 from whisper_vits_svc_tpu_torch.utils.pitch import f0_to_coarse
 
@@ -130,6 +131,13 @@ def test_flow(reverse):
     out_x, out_ld = port(_t(x), _t(mask), _t(g), reverse=reverse)
     np.testing.assert_allclose(out_x.detach().numpy(), np.asarray(ref_x), atol=2e-5, rtol=1e-5)
     np.testing.assert_allclose(out_ld.detach().numpy(), np.asarray(ref_ld), atol=1e-4, rtol=1e-5)
+
+
+def test_flip_matches_jax():
+    """The channel flip between couplings, a permutation: equal to the bit."""
+    x = np.random.default_rng(8).standard_normal((2, 5, 6)).astype(np.float32)
+    np.testing.assert_array_equal(flip(_t(x)).numpy(), np.asarray(j_flip(jnp.asarray(x))))
+    assert torch.equal(Flip()(_t(x)), flip(_t(x)))
 
 
 def test_source_hn_nsf_deterministic_with_phase_carry():

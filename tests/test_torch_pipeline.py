@@ -111,3 +111,14 @@ def test_base_model_config_matches_yaml():
     assert sorted(BASE_MODEL_CONFIG) == ["data", "gen", "log", "mpd", "mrd", "train", "vits"]
     for section in BASE_MODEL_CONFIG:
         assert BASE_MODEL_CONFIG[section] == hp[section].to_dict(), section
+
+
+def test_source2wav_matches_jax():
+    """The excitation's int16 debug waveform: scaled by 32768, clipped to
+    [-32768, 32767], truncated, equal to the JAX package's."""
+    src = np.random.default_rng(6).uniform(-1.2, 1.2, (1, 500, 1)).astype(np.float32)
+    src[0, :3, 0] = (1.0, -1.0, 0.99999)
+    got = pipeline.source2wav(src)
+    assert got.dtype == np.int16 and got.shape == (500,)
+    np.testing.assert_array_equal(got, jpipeline.source2wav(src))
+    assert got.max() == 32767 and got.min() == -32768

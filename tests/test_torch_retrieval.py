@@ -98,3 +98,17 @@ def test_compress_features_matches_jax():
     np.testing.assert_array_equal(got, jretrieval.compress_features(feats, **kw))
     small = pretrieval.compress_features(feats[:100], **kw)
     np.testing.assert_array_equal(small, feats[:100].astype(np.float32))
+
+
+def test_retrievals_are_iretrieval():
+    """IRetrieval is the interface svc_infer calls, as in the JAX package:
+    the dummy and the bank retrieval implement it, the base raises."""
+    assert issubclass(pretrieval.DummyRetrieval, pretrieval.IRetrieval)
+    assert issubclass(pretrieval.ArrayIndexRetrieval, pretrieval.IRetrieval)
+    assert issubclass(jretrieval.ArrayIndexRetrieval, jretrieval.IRetrieval)
+    x = np.ones((3, 4), np.float32)
+    for name in ("retriv_whisper", "retriv_hubert"):
+        with pytest.raises(NotImplementedError):
+            getattr(pretrieval.IRetrieval(), name)(x)
+        np.testing.assert_array_equal(getattr(pretrieval.DummyRetrieval(), name)(x),
+                                      getattr(jretrieval.DummyRetrieval(), name)(x))

@@ -76,3 +76,36 @@ def test_kernel_entry_refuses_cpu_tensor():
         snake_cuda.snake_alias_cuda(torch.from_numpy(x), torch.from_numpy(alpha),
                                     torch.from_numpy(beta))
     assert snake_cuda.launches == 0
+
+
+@pytest.mark.parametrize("ratio,kernel_size", [(2, None), (3, None), (2, 13)])
+def test_resamplers_match_jax(ratio, kernel_size):
+    """upsample1d / downsample1d on [B, T, C] against the JAX package's: the
+    same Kaiser sinc taps as a depthwise convolution in float32, summed in
+    another order: 1e-6 on inputs of order 1.5."""
+    x, _, _ = _inputs(11, (2, 37, 5))
+    for port, ref in ((tsnake.upsample1d, jsnake.upsample1d),
+                      (tsnake.downsample1d, jsnake.downsample1d)):
+        got = port(torch.from_numpy(x), ratio, kernel_size).numpy()
+        want = np.asarray(ref(jnp.asarray(x), ratio, kernel_size))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("exact_edges", [True, False])
+def test_snake_alias_fused_matches_jax_and_the_chain(exact_edges):
+    """snake_alias_fused on [B, T, C] against the JAX package's (5e-6, as the
+    channel-major form above) and, with exact edges, against
+    downsample1d(SnakeBeta(upsample1d(x))) (the unfused chain, 5e-6)."""
+    x, alpha, beta = _inputs(12, (2, 5, 41))
+    x = np.ascontiguousarray(x.transpose(0, 2, 1))  # [B, T, C]
+    args = [torch.from_numpy(a) for a in (x, alpha, beta)]
+    got = tsnake.snake_alias_fused(*args, exact_edges=exact_edges)
+    want = jsnake.snake_alias_fused(*(jnp.asarray(a) for a in (x, alpha, beta)),
+                                    exact_edges=exact_edges)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=5e-6)
+    if exact_edges:
+        u = tsnake.upsample1d(args[0])
+        s = u + torch.sin(u * args[1].exp()).square() / (args[2].exp() + 1e-9)
+        np.testing.assert_allclose(got.numpy(), tsnake.downsample1d(s).numpy(),
+                                   rtol=1e-5, atol=5e-6)

@@ -174,6 +174,24 @@ def test_native_loader_equals_numpy_route_and_jax(tmp_path, rng, monkeypatch):
     assert nl.route() == "numpy" and nl.load_npy_batch(paths[:2]) == [None, None]
 
 
+def test_load_npy_native_equals_numpy_and_jax(tmp_path, rng, monkeypatch):
+    """One .npy through load_npy_native: equal to numpy's read and the JAX
+    package's; None for another dtype, a missing file, and without the
+    library."""
+    _need_native()
+    path = str(tmp_path / "x.npy")
+    a = rng.standard_normal((37, 6)).astype(np.float32)
+    np.save(path, a)
+    np.testing.assert_array_equal(nl.load_npy_native(path), a)
+    if jnl.available():
+        np.testing.assert_array_equal(nl.load_npy_native(path), jnl.load_npy_native(path))
+    np.save(tmp_path / "f64.npy", np.ones(10))
+    assert nl.load_npy_native(str(tmp_path / "f64.npy")) is None
+    assert nl.load_npy_native(str(tmp_path / "missing.npy")) is None
+    _numpy_route(monkeypatch)
+    assert nl.load_npy_native(path) is None
+
+
 def test_dataset_native_route_equals_numpy_route(tmp_path, monkeypatch):
     _need_native()
     _, fl, hp = _make_data(tmp_path, np.random.default_rng(9), tiny_hp())

@@ -17,6 +17,7 @@ from whisper_vits_svc_tpu.models.discriminator import Discriminator as JDiscrimi
 from whisper_vits_svc_tpu.nn import conv as jconv
 from whisper_vits_svc_tpu.nn import grl as jgrl
 from whisper_vits_svc_tpu.nn.wn import WN as JWN
+from whisper_vits_svc_tpu.nn.wn import gated_activation as j_gated_activation
 from whisper_vits_svc_tpu.ops import mel as jmel
 from whisper_vits_svc_tpu.ops import stft as jstft
 from whisper_vits_svc_tpu.train import losses as jlosses
@@ -25,8 +26,8 @@ from whisper_vits_svc_tpu_torch.models.discriminator import Discriminator
 from whisper_vits_svc_tpu_torch.models.synthesizer import PosteriorEncoder, slice_segments
 from whisper_vits_svc_tpu_torch.nn import attention as tattention
 from whisper_vits_svc_tpu_torch.nn.conv import Conv1d, Conv2d
-from whisper_vits_svc_tpu_torch.nn.grl import GradientReversal, SpeakerClassifier
-from whisper_vits_svc_tpu_torch.nn.wn import WN
+from whisper_vits_svc_tpu_torch.nn.grl import GradientReversal, SpeakerClassifier, gradient_reversal
+from whisper_vits_svc_tpu_torch.nn.wn import WN, gated_activation
 from whisper_vits_svc_tpu_torch.ops import mel as tmel
 from whisper_vits_svc_tpu_torch.ops import stft as tstft
 from whisper_vits_svc_tpu_torch.train import losses as tlosses
@@ -119,6 +120,37 @@ def test_gradient_reversal_matches_jax_and_gradchecks():
     for l1, l2 in ((2.0, 0.5), (1.0, 1.0), (0.25, 4.0)):
         assert torch.autograd.gradcheck(
             lambda a: GradientReversal.apply(GradientReversal.apply(a, l1), l2), (x64,))
+
+
+def test_gradient_reversal_function_matches_jax():
+    """The function form: the identity forward, -lambda times the cotangent
+    backward, to the bit as jax.grad of the JAX function."""
+    rng = np.random.default_rng(4)
+    x, w = _rand(rng, 2, 7), _rand(rng, 2, 7)
+    for lam in (1.0, 0.3):
+        ref = jax.grad(lambda a: jnp.sum(w * jgrl.gradient_reversal(a, lam)))(jnp.asarray(x))
+        xt = torch.from_numpy(x).requires_grad_(True)
+        y = gradient_reversal(xt, lam)
+        assert torch.equal(y, torch.from_numpy(x))
+        (y * torch.from_numpy(w)).sum().backward()
+        np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(ref))
+
+
+def test_gated_activation_matches_jax():
+    """tanh * sigmoid of the two channel halves of x_in + g_l, on [B, T, 2h]
+    (the JAX layout) and on [B, 2h, T] with dim=1 (the port's WN), g_l None
+    adding nothing: f32 transcendental rounding, 1e-6."""
+    rng = np.random.default_rng(5)
+    x, g = _rand(rng, 2, 9, 8), _rand(rng, 2, 1, 8)
+    ref = np.asarray(j_gated_activation(jnp.asarray(x), jnp.asarray(g), 4))
+    got = gated_activation(torch.from_numpy(x), torch.from_numpy(g), 4).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    cm = gated_activation(torch.from_numpy(x).transpose(1, 2), torch.from_numpy(g).transpose(1, 2),
+                          4, dim=1)
+    np.testing.assert_array_equal(cm.transpose(1, 2).numpy(), got)
+    ref0 = np.asarray(j_gated_activation(jnp.asarray(x), 0.0, 4))
+    np.testing.assert_allclose(gated_activation(torch.from_numpy(x), None, 4).numpy(), ref0,
+                               rtol=0, atol=1e-6)
 
 
 def test_speaker_classifier_matches_jax():

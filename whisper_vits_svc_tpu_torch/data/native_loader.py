@@ -120,6 +120,12 @@ def load_wav_native(path: str, sr_hint: int = 32000):
     return buf[:n].copy(), int(out_sr.value)
 
 
+def load_npy_native(path: str) -> np.ndarray | None:
+    """One float32 .npy file through `load_npy_batch`, or None on any
+    failure."""
+    return load_npy_batch([path])[0]
+
+
 def load_npy_batch(paths: list[str]) -> list[np.ndarray | None]:
     """Thread-pooled load of several float32 little-endian C-order .npy
     files; None for each one that fails, other dtypes included (or for all

@@ -23,6 +23,8 @@ import torch.nn.functional as F
 
 from ..models.convert import from_jax_params, load_jax_ckpt, load_tolerant, torch_load_weights
 from ..models.synthesizer import SynthesizerInfer
+from ..nn.conv import fold_weight_norm
+from ..utils.audio_io import MAX_WAV_VALUE
 from ..utils.config import Config
 from ..utils.device import resolve_device
 
@@ -30,7 +32,7 @@ from ..utils.device import resolve_device
 def build_infer_model(hp: Config, device: str | torch.device | None = "cuda",
                       seed: int = 0, snake_variant: str = "direct",
                       amp_fused_iter: bool = False,
-                      fast_edges: bool = False) -> SynthesizerInfer:
+                      fast_edges: bool = False, fold_wn: bool = False) -> SynthesizerInfer:
     """The inference graph for `hp`, with random weights made from `seed`
     (JAX initializers), in eval mode on `device` (the card by default).
 
@@ -40,7 +42,12 @@ def build_infer_model(hp: Config, device: str | torch.device | None = "cuda",
     the default path. `fast_edges` zero-pads inside every snake's FIRs (the
     outermost ~6 samples of each call differ, trimmed by the overlap between
     chunks) and runs the plain chain in place of the kernels, as the JAX
-    package turns its Pallas snake off for it (infer/pipeline.py:125-156)."""
+    package turns its Pallas snake off for it (infer/pipeline.py:125-156).
+    `fold_wn` folds every weight norm into a plain kernel once
+    (nn/conv.py::fold_weight_norm), as the reference's remove_weight_norm()
+    before inference does: the convolutions then skip the norm on each call,
+    and `load_svc_model` folds a checkpoint's weight-norm pairs on the way
+    in."""
     dev = resolve_device(device)
     model = SynthesizerInfer(
         ppg_dim=hp.vits.ppg_dim,
@@ -63,6 +70,8 @@ def build_infer_model(hp: Config, device: str | torch.device | None = "cuda",
         snake_exact_edges=not fast_edges,
     )
     model.init_weights(torch.Generator().manual_seed(seed))
+    if fold_wn:
+        model.load_state_dict(fold_weight_norm(model.state_dict()))
     return model.to(dev).eval()
 
 
@@ -202,6 +211,12 @@ def svc_infer(model: SynthesizerInfer, retrieval, spk: np.ndarray, pit: np.ndarr
         if return_source:
             return audio, source[0, :, 0].cpu().numpy()
     return audio
+
+
+def source2wav(source: np.ndarray) -> np.ndarray:
+    """Excitation -> int16 debug waveform (reference generator.py:167-173)."""
+    audio = np.squeeze(source) * MAX_WAV_VALUE
+    return np.clip(audio, -MAX_WAV_VALUE, MAX_WAV_VALUE - 1).astype(np.int16)
 
 
 def save_csv_pitch(pitch: np.ndarray, path: str):

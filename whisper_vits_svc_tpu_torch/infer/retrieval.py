@@ -20,7 +20,17 @@ import torch
 from ..utils.device import resolve_device
 
 
-class DummyRetrieval:
+class IRetrieval:
+    """What svc_infer asks of a retrieval: each chunk's PPG and units, blended."""
+
+    def retriv_whisper(self, vec: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def retriv_hubert(self, vec: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+
+class DummyRetrieval(IRetrieval):
     def retriv_whisper(self, vec: np.ndarray) -> np.ndarray:
         return np.asarray(vec, np.float32)
 
@@ -43,7 +53,7 @@ def retrieve_blend(query: torch.Tensor, bank: torch.Tensor, ratio: float, k: int
     return (1.0 - ratio) * query + ratio * blended
 
 
-class ArrayIndexRetrieval:
+class ArrayIndexRetrieval(IRetrieval):
     """retriv() of FaissRVCRetrievableFeatureIndex (index.py:57-94), with
     both banks kept on `device` (the card by default)."""
 

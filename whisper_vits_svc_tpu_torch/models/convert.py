@@ -14,7 +14,10 @@ AdamW moments, the MultiSteps accumulator) into a torch AdamW state_dict.
 `from_jax_speaker_encoder` are the inverses of the extractors' converters
 (`convert_encoder`, `convert_hubert`, `convert_crepe`,
 `convert_speaker_encoder`); `from_jax_silero_vad` turns the numpy tree of
-the JAX package's `load_silero_vad` into the port's SileroVAD state_dict.
+the JAX package's `load_silero_vad` into the port's SileroVAD state_dict,
+and `from_jax_med` a MelspecDiscriminator tree into the port's. A tree that
+the JAX package's `fold_weight_norm` folded ({kernel} in place of {v, g})
+converts to the folded `weight`.
 `load_jax_ckpt` reads a JAX `.ckpt` (flax msgpack) with plain `msgpack`,
 imported lazily; `torch_load_weights` reads a `.pth` with
 `weights_only=True`; `load_generator` reads the generator of either.
@@ -52,23 +55,28 @@ def _conv1d(sd: dict, name: str, p: Mapping) -> None:
         sd[f"{name}.bias"] = _t(p["bias"])
 
 
-def _wn_conv1d(sd: dict, name: str, p: Mapping) -> None:
-    sd[f"{name}.weight_g"] = _t(np.reshape(p["g"], (-1, 1, 1)))
-    sd[f"{name}.weight_v"] = _t(np.transpose(p["v"], (2, 1, 0)))
+def _wn_pair(sd: dict, name: str, p: Mapping, g_shape: tuple, axes: tuple) -> None:
+    """A weight-norm {v, g} pair, or the {kernel} that the JAX package's
+    fold_weight_norm makes of it (then a folded `weight`), and the bias."""
+    if "kernel" in p:
+        sd[f"{name}.weight"] = _t(np.transpose(p["kernel"], axes))
+    else:
+        sd[f"{name}.weight_g"] = _t(np.reshape(p["g"], g_shape))
+        sd[f"{name}.weight_v"] = _t(np.transpose(p["v"], axes))
     if "bias" in p:
         sd[f"{name}.bias"] = _t(p["bias"])
 
 
+def _wn_conv1d(sd: dict, name: str, p: Mapping) -> None:
+    _wn_pair(sd, name, p, (-1, 1, 1), (2, 1, 0))
+
+
 def _wn_convT1d(sd: dict, name: str, p: Mapping) -> None:
-    sd[f"{name}.weight_g"] = _t(np.reshape(p["g"], (-1, 1, 1)))
-    sd[f"{name}.weight_v"] = _t(np.transpose(p["v"], (1, 2, 0)))
-    sd[f"{name}.bias"] = _t(p["bias"])
+    _wn_pair(sd, name, p, (-1, 1, 1), (1, 2, 0))
 
 
 def _wn_conv2d(sd: dict, name: str, p: Mapping) -> None:
-    sd[f"{name}.weight_g"] = _t(np.reshape(p["g"], (-1, 1, 1, 1)))
-    sd[f"{name}.weight_v"] = _t(np.transpose(p["v"], (3, 2, 0, 1)))
-    sd[f"{name}.bias"] = _t(p["bias"])
+    _wn_pair(sd, name, p, (-1, 1, 1, 1), (3, 2, 0, 1))
 
 
 def _conv1x1_from_dense(sd: dict, name: str, p: Mapping) -> None:
@@ -320,6 +328,19 @@ def _conv2d(sd: dict, name: str, p: Mapping) -> None:
         sd[f"{name}.bias"] = _t(p["bias"])
 
 
+def from_jax_med(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX MelspecDiscriminator params {convs_i, bn{i}_scale, bn{i}_bias,
+    postnet} -> the port's state_dict (`_convs.{i}.0` conv, `_convs.{i}.1`
+    BatchNorm2d in eval mode, `_postnet`)."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    for i in range(_count(tree, "convs")):
+        _conv2d(sd, f"_convs.{i}.0", tree[f"convs_{i}"])
+        _batch_norm(sd, f"_convs.{i}.1", {"scale": tree[f"bn{i}_scale"],
+                                           "bias": tree[f"bn{i}_bias"]})
+    _conv2d(sd, "_postnet", tree["postnet"])
+    return sd
+
+
 def from_jax_resnet_speaker(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """JAX ResNetSpeakerEncoder params -> the port's state_dict (the
     reference's conv1 / bn1 / layer{i}.{j} / attention / fc keys)."""
@@ -464,12 +485,23 @@ def load_generator(path: str) -> "OrderedDict[str, torch.Tensor]":
 def load_tolerant(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> list[str]:
     """Copy the model's keys present in `sd` (shapes must match); keys the
     model has and `sd` lacks keep their current values, as the reference
-    loaders do (svc_inference.py:61-74). Returns the missing keys."""
+    loaders do (svc_inference.py:61-74). Returns the missing keys. A
+    weight-norm pair of `sd` fills a folded module's `weight`, and a folded
+    `sd` folds the model's weight norm first (nn/conv.py::fold_weight_norm)."""
+    from ..nn.conv import fold_weight_norm
+
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}  # DDP-saved keys
     own = model.state_dict()
+    if any(k.endswith("weight_g") and k[:-2] in sd for k in own):
+        model.load_state_dict(fold_weight_norm(own))
+        own = model.state_dict()
     missing = []
     with torch.no_grad():
         for k, v in own.items():
-            src = sd.get(k, sd.get(f"module.{k}"))  # DDP-saved keys carry "module."
+            src = sd.get(k)
+            if src is None and f"{k}_g" in sd and f"{k}_v" in sd:
+                pair = {f"weight_{x}": torch.as_tensor(sd[f"{k}_{x}"]) for x in "gv"}
+                src = fold_weight_norm(pair)["weight"]
             if src is None:
                 missing.append(k)
                 continue

@@ -1,7 +1,9 @@
 """Composite GAN discriminator: MRD + MPD + MSD (reference
 vits_decoder/{discriminator,mpd,mrd,msd}.py, JAX models/discriminator.py).
 
-Returns a list of (feature_maps, score) pairs in MRD, MPD, MSD order. Audio
+Returns a list of (feature_maps, score) pairs in MRD, MPD, MSD order.
+`MelspecDiscriminator` (the 48 kHz mel discriminator) is in no
+`Discriminator`, as in the reference and the JAX package. Audio
 in is [B, T, 1] (the JAX layout); feature maps are torch NCHW / NCT, scores
 [B, n] in the JAX order. The JAX package's TPU layout devices (the MRD's
 4-way frequency fold, the MSD's merged groups) compute the same values as
@@ -17,12 +19,14 @@ float32. Parameters and their gradients stay float32.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.conv import Conv1d, Conv2d
-from ..ops.stft import mrd_magnitude
+from ..nn.conv import Conv1d, Conv2d, uniform_init_
+from ..ops.mel import mel_filterbank
+from ..ops.stft import mrd_magnitude, stft_magnitude
 
 
 def _to_f32(fmap: list, score: torch.Tensor):
@@ -170,3 +174,58 @@ class Discriminator(nn.Module):
         out += [d(x) for d in self.MPD.discriminators]
         out.append(self.MSD(x))
         return out
+
+
+class MelspecDiscriminator(nn.Module):
+    """48 kHz mel-spectrogram discriminator (reference vits_decoder/med.py:6-65,
+    JAX models/discriminator.py:210-253): the centered magnitude STFT
+    (n_fft 2048, 25 ms window, 10 ms hop), 128 HTK mel bands with no norm,
+    log(mel + 1e-5), four bias-free Conv2d(64) each followed by a
+    BatchNorm2d and a GLU over the channels, and a (15, 3) postnet averaged
+    to one score an item. Keys are the reference's: `_convs.{i}.0` (conv),
+    `_convs.{i}.1` (BatchNorm2d), `_postnet`. In eval mode the BatchNorm is
+    the JAX package's per-channel scale and bias; in train mode it takes the
+    batch's statistics, as the reference's does."""
+
+    KERNELS = ((7, 7), (4, 4), (4, 4), (4, 4))
+    N_FFT, N_MELS = 2048, 128
+
+    def __init__(self, sample_rate: int = 48000):
+        super().__init__()
+        self.sample_rate = sample_rate
+        self.win, self.hop = int(0.025 * sample_rate), int(0.010 * sample_rate)
+        self._convs = nn.ModuleList(
+            nn.Sequential(nn.Conv2d(1 if i == 0 else 32, 64, k, stride=(1, 2), padding=(1, 2),
+                                    bias=False),
+                          nn.BatchNorm2d(64), nn.GLU(dim=1))
+            for i, k in enumerate(self.KERNELS))
+        self._postnet = nn.Conv2d(32, 1, (15, 3), stride=(1, 2))
+        basis = mel_filterbank(sample_rate, self.N_FFT, self.N_MELS, htk=True, norm=None)
+        self.register_buffer("mel_basis", torch.from_numpy(np.ascontiguousarray(basis.T)),
+                             persistent=False)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The JAX package's initializers: U(-b, b), b = 1/sqrt(fan_in), for
+        the convolutions and the postnet's bias; scale 1 and bias 0, with
+        running statistics that make the eval-mode BatchNorm that affine map
+        (mean 0, var 1 - eps)."""
+        for block in self._convs:
+            conv, bn = block[0], block[1]
+            uniform_init_(conv.weight, conv.weight[0].numel(), generator)
+            nn.init.ones_(bn.weight)
+            nn.init.zeros_(bn.bias)
+            nn.init.zeros_(bn.running_mean)
+            nn.init.constant_(bn.running_var, 1.0 - bn.eps)
+        fan_in = self._postnet.weight[0].numel()
+        uniform_init_(self._postnet.weight, fan_in, generator)
+        uniform_init_(self._postnet.bias, fan_in, generator)
+
+    def forward(self, x: torch.Tensor):
+        """x [B, T, 1] -> [(fmaps [B, 32, mels', frames'] x 4, score [B])]."""
+        mag = stft_magnitude(x[..., 0].float(), self.N_FFT, self.hop, self.win, center=True)
+        h = torch.log(mag @ self.mel_basis + 1e-5).transpose(1, 2)[:, None]
+        fmap = []
+        for block in self._convs:
+            h = block(h)
+            fmap.append(h)
+        return [(fmap, self._postnet(h).mean(dim=(1, 2, 3)))]

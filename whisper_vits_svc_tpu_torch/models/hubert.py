@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..nn.conv import WeightNormed
 from ..utils.device import resolve_device
 from .convert import torch_load_weights
 
@@ -95,22 +96,21 @@ class FeatureProjection(nn.Module):
         return self.projection(self.norm(x))
 
 
-class _WeightNormConv(nn.Module):
+class _WeightNormConv(WeightNormed):
     """The grouped positional conv's parameters: weight_norm(dim=2) on the
-    (O, I/g, K) weight, the norm per kernel position over (O, I/g)."""
+    (O, I/g, K) weight, the norm per kernel position over (O, I/g); it loads
+    a folded `weight` too (nn/conv.py::fold_weight_norm)."""
+
+    wn_dim = 2
 
     def __init__(self, channels: int = 768, kernel_size: int = 128, groups: int = 16):
         super().__init__()
-        self.groups = groups
+        self.groups, self.kernel_size = groups, kernel_size
+        self.weight_norm = True
         self.weight_g = nn.Parameter(torch.ones(1, 1, kernel_size))
         self.weight_v = nn.Parameter(torch.empty(channels, channels // groups, kernel_size))
         self.bias = nn.Parameter(torch.zeros(channels))
         nn.init.normal_(self.weight_v, std=0.02)
-
-    def weight(self) -> torch.Tensor:
-        v = self.weight_v
-        norm = v.square().sum(dim=(0, 1), keepdim=True).sqrt()
-        return self.weight_g * v / (norm + 1e-12)
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -121,8 +121,8 @@ class PositionalConvEmbedding(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, T, 768] -> [B, T, 768]: the grouped k=128 conv padded 64 each
         side, its last frame dropped, GELU."""
-        k = self.conv.weight_v.shape[2]
-        y = F.conv1d(x.transpose(1, 2), self.conv.weight(), self.conv.bias,
+        k = self.conv.kernel_size
+        y = F.conv1d(x.transpose(1, 2), self.conv.kernel(), self.conv.bias,
                      padding=k // 2, groups=self.conv.groups)
         return F.gelu(y[:, :, :-1]).transpose(1, 2)
 

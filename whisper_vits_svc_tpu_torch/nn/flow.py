@@ -57,11 +57,16 @@ class ResidualCouplingLayer(nn.Module):
         return torch.cat([x0, x1], dim=-1), logdet
 
 
-class Flip(nn.Module):
+def flip(x: torch.Tensor) -> torch.Tensor:
     """Channel-order flip between couplings (reference vits/modules.py:225-229)."""
+    return torch.flip(x, dims=(-1,))
+
+
+class Flip(nn.Module):
+    """`flip` as a module, at the reference's odd indices of `flows`."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.flip(x, dims=(-1,))
+        return flip(x)
 
 
 class ResidualCouplingBlock(nn.Module):

@@ -27,13 +27,18 @@ class GradientReversal(torch.autograd.Function):
         return -ctx.lambda_ * g, None
 
 
+def gradient_reversal(x: torch.Tensor, lambda_: float = 1.0) -> torch.Tensor:
+    """The identity forward; the gradient times -lambda_ backward."""
+    return GradientReversal.apply(x, lambda_)
+
+
 class GRL(nn.Module):
     def __init__(self, lambda_reversal: float = 1.0):
         super().__init__()
         self.lambda_reversal = lambda_reversal
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return GradientReversal.apply(x, self.lambda_reversal)
+        return gradient_reversal(x, self.lambda_reversal)
 
 
 class SpeakerClassifier(nn.Module):

@@ -9,7 +9,9 @@ are derived numerically from the reference resamplers (`_polyphase_taps`).
 
 `snake_alias_fused_cm` is the plain PyTorch version on [B, C, T]; the
 `SnakeAlias` module runs it for a CPU tensor and the CUDA kernel
-(ops/snake_cuda.py) for a CUDA tensor.
+(ops/snake_cuda.py) for a CUDA tensor. `upsample1d`, `downsample1d` and
+`snake_alias_fused` are the JAX package's [B, T, C] forms: the reference's
+resamplers as depthwise convolutions, and the fused chain.
 """
 
 from __future__ import annotations
@@ -46,6 +48,38 @@ def kaiser_sinc_filter1d(cutoff: float, half_width: float, kernel_size: int) -> 
     filt = 2 * cutoff * window * np.sinc(2 * cutoff * time)
     filt = filt / filt.sum()
     return filt.astype(np.float32)
+
+
+def _sinc_kernel(x: torch.Tensor, ratio: int, kernel_size: int) -> torch.Tensor:
+    """The Kaiser sinc lowpass as a depthwise kernel [C, 1, K] for [B, T, C] x."""
+    filt = torch.from_numpy(kaiser_sinc_filter1d(0.5 / ratio, 0.6 / ratio, kernel_size))
+    return filt.to(x)[None, None].expand(x.shape[-1], 1, -1)
+
+
+def upsample1d(x: torch.Tensor, ratio: int = 2, kernel_size: int | None = None) -> torch.Tensor:
+    """xN anti-aliased upsample on [B, T, C] (reference alias/resample.py:10-33):
+    replicate-pad, transposed depthwise conv with the Kaiser sinc filter,
+    scale by the ratio, trim the edges."""
+    if kernel_size is None:
+        kernel_size = int(6 * ratio // 2) * 2
+    pad = kernel_size // ratio - 1
+    pad_left = pad * ratio + (kernel_size - ratio) // 2
+    pad_right = pad * ratio + (kernel_size - ratio + 1) // 2
+    xc = F.pad(x.transpose(1, 2), (pad, pad), mode="replicate")
+    y = ratio * F.conv_transpose1d(xc, _sinc_kernel(x, ratio, kernel_size), stride=ratio,
+                                   groups=x.shape[-1])
+    return y[..., pad_left : y.shape[-1] - pad_right].transpose(1, 2)
+
+
+def downsample1d(x: torch.Tensor, ratio: int = 2, kernel_size: int | None = None) -> torch.Tensor:
+    """xN anti-aliased downsample on [B, T, C] (reference alias/resample.py:36-49):
+    replicate-pad, strided depthwise lowpass."""
+    if kernel_size is None:
+        kernel_size = int(6 * ratio // 2) * 2
+    pad_left = kernel_size // 2 - int(kernel_size % 2 == 0)
+    xc = F.pad(x.transpose(1, 2), (pad_left, kernel_size // 2), mode="replicate")
+    return F.conv1d(xc, _sinc_kernel(x, ratio, kernel_size), stride=ratio,
+                    groups=x.shape[-1]).transpose(1, 2)
 
 
 def _np_upsample(x: np.ndarray, ratio: int = 2, k: int = 12) -> np.ndarray:
@@ -170,6 +204,15 @@ def snake_alias_fused_cm(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tenso
     se_pad = extend(s_e, -doe, max(0, doe + len(de) - 1))
     so_pad = extend(s_o, -doo, max(0, doo + len(do_) - 1))
     return _dw_valid(se_pad, de) + _dw_valid(so_pad, do_)
+
+
+def snake_alias_fused(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                      k_up: int = 12, k_down: int = 12,
+                      exact_edges: bool = True) -> torch.Tensor:
+    """`snake_alias_fused_cm` on [B, T, C]: with exact edges equal to
+    downsample1d(SnakeBeta(upsample1d(x)))."""
+    return snake_alias_fused_cm(x.transpose(1, 2), alpha, beta, k_up, k_down,
+                                exact_edges).transpose(1, 2)
 
 
 class SnakeBeta(nn.Module):

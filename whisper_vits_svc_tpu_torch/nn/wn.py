@@ -16,6 +16,16 @@ from torch import nn
 from .conv import Conv1d
 
 
+def gated_activation(x_in: torch.Tensor, g_l: torch.Tensor | None, channels: int,
+                     dim: int = -1) -> torch.Tensor:
+    """tanh(a) * sigmoid(b) of (a, b) = x_in + g_l split at `channels` along
+    `dim` (the channels; the last axis, as in the JAX package, by default).
+    g_l None adds nothing."""
+    acts = x_in if g_l is None else x_in + g_l
+    a, b = acts.split(channels, dim=dim)
+    return torch.tanh(a) * torch.sigmoid(b)
+
+
 class WN(nn.Module):
     def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int,
                  n_layers: int, gin_channels: int = 0):
@@ -51,10 +61,8 @@ class WN(nn.Module):
         output = torch.zeros_like(x)
         n = len(self.in_layers)
         for i, (conv_in, conv_rs) in enumerate(zip(self.in_layers, self.res_skip_layers)):
-            x_in = conv_in(x)
-            if g is not None:
-                x_in = x_in + g[:, i * 2 * h : (i + 1) * 2 * h]
-            acts = torch.tanh(x_in[:, :h]) * torch.sigmoid(x_in[:, h:])
+            g_l = None if g is None else g[:, i * 2 * h : (i + 1) * 2 * h]
+            acts = gated_activation(conv_in(x), g_l, h, dim=1)
             res_skip = conv_rs(acts)
             if i < n - 1:
                 x = (x + res_skip[:, :h]) * mask
