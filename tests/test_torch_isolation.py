@@ -64,7 +64,8 @@ def test_kernel_modules_and_sources_stand_alone():
                    "utils/rng.py", "data/preprocess.py", "cli/preprocessing.py",
                    "infer/serving.py", "cli/export.py", "cli/webui.py", "parallel/sharding.py",
                    "utils/profiling.py", "utils/device_trace.py", "models/discriminator.py",
-                   "nn/conv.py"):
+                   "nn/conv.py", "tools/make_synth_dataset.py", "tools/pitch_debug.py",
+                   "tools/train_health.py"):
         assert os.path.isfile(os.path.join(pkg, module)), module
     bad = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|flax|whisper_vits_svc_tpu)(?:\.|\s|$)",
                      re.M)
@@ -142,6 +143,51 @@ with tempfile.TemporaryDirectory() as d:
         t.stop(x)
     assert device_trace.device_ms_per_call(d, "snake_alias") is None
 assert source2wav(x.numpy()).dtype.name == "int16"
+print("OK")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "OK", res.stdout
+
+
+def test_tool_modules_stand_alone():
+    """The training-health tools (make_synth_dataset, pitch_debug,
+    train_health) import no JAX, no JAX-package module and nothing of the
+    repository's root tools/, and run with all of them made unimportable
+    (an import of any raises):
+    a two-utterance workspace on the CPU and its first pitch cache as CSV."""
+    import ast
+
+    for name in ("make_synth_dataset", "pitch_debug", "train_health"):
+        path = os.path.join(REPO, "whisper_vits_svc_tpu_torch", "tools", f"{name}.py")
+        tree = ast.parse(open(path, encoding="utf-8").read())
+        roots = {a.name.split(".")[0] for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names}
+        roots |= {n.module.split(".")[0] for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module}
+        assert not roots & {"jax", "jaxlib", "flax", "whisper_vits_svc_tpu", "tools"}, name
+    probe = r"""
+import glob, importlib.abc, io, contextlib, os, sys, tempfile
+BLOCKED = ("jax", "jaxlib", "flax", "whisper_vits_svc_tpu", "tools")
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+
+sys.meta_path.insert(0, Block())
+from whisper_vits_svc_tpu_torch.tools import make_synth_dataset, pitch_debug, train_health
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(io.StringIO()):
+    rows = make_synth_dataset.main(["--out", d, "--n-utts", "2", "--n-speakers", "1",
+                                    "--min-secs", "1.6", "--max-secs", "1.7",
+                                    "--device", "cpu"])
+    pit = sorted(glob.glob(os.path.join(d, "data_svc", "pitch", "*", "*.pit.npy")))[0]
+    pitch_debug.main(["-p", pit, "-o", os.path.join(d, "p.csv")])
+    assert len(rows) == 2 and os.path.getsize(os.path.join(d, "p.csv")) > 0
+assert not [n for n in sys.modules if n.split(".")[0] in BLOCKED]
 print("OK")
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
