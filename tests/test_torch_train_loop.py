@@ -436,7 +436,8 @@ def test_nan_guard_autoresumes_from_checkpoint(tmp_path, monkeypatch, capsys):
 def test_epoch_lr_validation_and_profile(tmp_path, monkeypatch):
     """Two epochs: epoch e trains G at lr0 * gamma^(e-1) and D at that over
     accum_step (JAX train/loop.py:144-146); validation at each epoch writes
-    validation_mel_loss records; the profiler window writes a Chrome trace."""
+    validation_mel_loss records; the profiler window writes a Chrome trace
+    holding the spans of its two steps."""
     import json
 
     hp = _loop_hp(tmp_path, eval_interval=1, info_interval=2)
@@ -466,6 +467,57 @@ def test_epoch_lr_validation_and_profile(tmp_path, monkeypatch):
     assert all(r["steps_per_s"] > 0 and r["audio_seconds_per_s"] > 0 for r in train_recs)
     trace = tmp_path / "prof" / "train_steps.json"
     assert trace.is_file() and trace.stat().st_size > 0
+    ranges = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    assert ranges.count("svc.step") == 2 and ranges.count("svc.step.update") == 2
+
+
+def test_writer_rates_span_epochs(tmp_path, monkeypatch):
+    """On a fake clock where a step takes 0.25 s and each validation and
+    checkpoint 1000 s: with 4 batches an epoch and a record every 3 steps,
+    the records at steps 6 and 9 span an epoch boundary, and every record
+    reads the steps and samples since the last one over their 0.25 s each,
+    exactly."""
+    import json
+    from types import SimpleNamespace
+
+    hp = _loop_hp(tmp_path, eval_interval=1, info_interval=3)
+    assert _batches_per_epoch(hp) == 4
+    clock = [0.0]
+    samples = []
+    monkeypatch.setattr(loop_mod, "time", SimpleNamespace(perf_counter=lambda: clock[0]))
+    real_make, real_validate, real_save = loop_mod.make_train_step, loop_mod.validate, ckpt.save
+
+    def make(*args):
+        step = real_make(*args)
+
+        def timed(batch, generator=None):
+            metrics = step(batch, generator)
+            samples.append(int(batch["spec_l"].sum()) * hp.data.hop_length)
+            clock[0] += 0.25
+            return metrics
+        return timed
+
+    def slow(fn):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            clock[0] += 1000.0
+            return out
+        return wrapped
+
+    monkeypatch.setattr(loop_mod, "make_train_step", make)
+    monkeypatch.setattr(loop_mod, "validate", slow(real_validate))
+    monkeypatch.setattr(ckpt, "save", slow(real_save))
+    loop_mod.train(hp, "t", max_epochs=3, device="cpu")
+    records = [json.loads(line) for line in
+               open(os.path.join(hp.log.log_dir, "t", "metrics.jsonl"))]
+    train_recs = [r for r in records if "loss_g" in r]
+    assert [r["step"] for r in train_recs] == [3, 6, 9, 12]
+    for r in train_recs:
+        s = r["step"]
+        assert r["steps_per_s"] == 3 / 0.75
+        assert r["audio_seconds_per_s"] == pytest.approx(
+            sum(samples[s - 3 : s]) / hp.data.sampling_rate / 0.75, rel=1e-12)
 
 
 def test_validate_matches_infer_and_mel_loss(tmp_path):

@@ -28,6 +28,7 @@ from ..models.synthesizer import SynthesizerInfer
 from ..nn.nsf import source_hn_nsf
 from ..utils.config import Config
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 N_HARMONICS = 11  # the fundamental and 10 harmonics of the NSF source
 
@@ -59,6 +60,7 @@ class StreamingSvc:
         self._total = context_frames + block_frames
         self._length = torch.tensor([self._total], device=self.dev)
         self.extractor = None
+        self._pushes = 0  # the unit id of the push's spans
 
         self.phase = torch.zeros((1, N_HARMONICS), dtype=torch.float32, device=self.dev)
         self.ctx_ppg = np.zeros((context_frames, hp.vits.ppg_dim), np.float32)
@@ -111,29 +113,36 @@ class StreamingSvc:
         to its frames."""
         n = ppg.shape[0]
         assert n <= self.block, f"push at most {self.block} frames"
-        pad = self.block - n
-        ppg_b = np.pad(ppg.astype(np.float32), ((0, pad), (0, 0)))
-        vec_b = np.pad(vec.astype(np.float32), ((0, pad), (0, 0)))
-        pit_b = np.pad(pit.astype(np.float32), (0, pad))
-        full_ppg = np.concatenate([self.ctx_ppg, ppg_b])
-        full_vec = np.concatenate([self.ctx_vec, vec_b])
-        full_pit = np.concatenate([self.ctx_pit, pit_b])
-
-        noise = None
-        if self.noise_scale != 0:
-            noise = torch.randn((1, self._total, self.model.inter_channels),
-                                generator=self.noise_gen).to(self.dev)
-        with torch.inference_mode():
-            pit_t = torch.from_numpy(full_pit)[None].to(self.dev)
-            source, phase = self._source(pit_t)
-            out = self.model(torch.from_numpy(full_ppg)[None].to(self.dev),
-                             torch.from_numpy(full_vec)[None].to(self.dev),
-                             pit_t, self.spk, self._length, source, self.noise_scale,
-                             noise=noise)
-            audio = out[0, self.context * self.hop :, 0].cpu().numpy()
-        self.phase = phase
-        self.ctx_ppg = full_ppg[-self.context :]
-        self.ctx_vec = full_vec[-self.context :]
-        self.ctx_pit = full_pit[-self.context :]
-        self.ctx_valid = min(self.ctx_valid + n, self.context)
+        self._pushes += 1
+        with span("svc.push", unit=self._pushes), torch.inference_mode():
+            with span("svc.push.prep"):
+                pad = self.block - n
+                ppg_b = np.pad(ppg.astype(np.float32), ((0, pad), (0, 0)))
+                vec_b = np.pad(vec.astype(np.float32), ((0, pad), (0, 0)))
+                pit_b = np.pad(pit.astype(np.float32), (0, pad))
+                full_ppg = np.concatenate([self.ctx_ppg, ppg_b])
+                full_vec = np.concatenate([self.ctx_vec, vec_b])
+                full_pit = np.concatenate([self.ctx_pit, pit_b])
+                noise = None
+                if self.noise_scale != 0:
+                    noise = torch.randn((1, self._total, self.model.inter_channels),
+                                        generator=self.noise_gen)
+            with span("svc.push.upload"):
+                if noise is not None:
+                    noise = noise.to(self.dev)
+                pit_t = torch.from_numpy(full_pit)[None].to(self.dev)
+                ppg_t = torch.from_numpy(full_ppg)[None].to(self.dev)
+                vec_t = torch.from_numpy(full_vec)[None].to(self.dev)
+            with span("svc.push.source"):
+                source, phase = self._source(pit_t)
+            with span("svc.push.forward"):
+                out = self.model(ppg_t, vec_t, pit_t, self.spk, self._length, source,
+                                 self.noise_scale, noise=noise)
+            with span("svc.push.readback"):
+                audio = out[0, self.context * self.hop :, 0].cpu().numpy()
+            self.phase = phase
+            self.ctx_ppg = full_ppg[-self.context :]
+            self.ctx_vec = full_vec[-self.context :]
+            self.ctx_pit = full_pit[-self.context :]
+            self.ctx_valid = min(self.ctx_valid + n, self.context)
         return audio[: n * self.hop]

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..models import crepe
 from ..utils.device import resolve_device
+from ..utils.profiling import start_trace, stop_trace
 
 
 def forward(model: crepe.Crepe, frames: torch.Tensor, conv1d: bool) -> torch.Tensor:
@@ -58,10 +59,9 @@ def forward(model: crepe.Crepe, frames: torch.Tensor, conv1d: bool) -> torch.Ten
 
 def layer_ms(fn) -> dict:
     """Device ms of the kernels under each layer's record_function range."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof = start_trace(cuda=True)
+    fn()
+    stop_trace(prof)
     out = {}
     for e in prof.key_averages():
         if e.key.startswith("layer"):

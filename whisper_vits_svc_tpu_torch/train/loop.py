@@ -40,12 +40,14 @@ from ..data.prefetch import prefetch
 from ..ops.stft import linear_spectrogram
 from ..parallel import ddp
 from ..utils.config import Config
+from ..utils.profiling import start_trace, stop_trace
 from . import checkpoint as ckpt
 from .losses import mel_l1_loss
 from .step import init_train_states, make_train_step, set_learning_rate
 from .writer import TrainWriter
 
 HEALTH_KEYS = ("loss_g", "loss_d", "grad_norm_g", "grad_norm_d")
+PROFILE_FILE = "train_steps.json"  # the Chrome trace under profile_dir
 
 
 class TrainDivergence(RuntimeError):
@@ -135,6 +137,9 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
     lr_scale = 1.0
     last_healthy_step = step
     profiler = None
+    # the writer's rates: steps and samples since its last record over the
+    # time spent in the epochs' batch loops (validation and saves left out)
+    rate_steps, rate_samples, rate_s = 0, 0, 0.0
 
     epoch = init_epoch
     try:
@@ -148,27 +153,29 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
                     mel = validate(hp, g_state.model, val_ds, writer, step)
                     print(f"epoch {epoch} | validation mel {mel:.4f} | step {step}")
 
-                t_last, samples_done = time.perf_counter(), 0
+                t_last = time.perf_counter()
                 metrics = None
                 for batch in prefetch(batcher.epoch_batches(epoch), depth=2):
                     if primary and profile_dir is not None and step == 2:
-                        profiler = _start_profiler(dev)
+                        profiler = start_trace(cuda=dev.type == "cuda")
                     real_samples = int(batch["spec_l"].sum()) * hop
                     metrics = train_step(batch, generator)
                     step += 1
                     if profiler is not None and step == 2 + profile_steps:
-                        _stop_profiler(profiler, profile_dir, dev)
+                        stop_trace(profiler, os.path.join(profile_dir, PROFILE_FILE), dev)
                         profiler, profile_dir = None, None
-                    samples_done += real_samples
+                    rate_steps += 1
+                    rate_samples += real_samples
                     if step % hp.log.info_interval == 0:
                         metrics = {k: float(v) for k, v in metrics.items()}
                         _check_finite(metrics, guard)  # the global metrics: one verdict
                         last_healthy_step = step
                     if primary and step % hp.log.info_interval == 0:
-                        dt = time.perf_counter() - t_last
-                        metrics["audio_seconds_per_s"] = samples_done / sr / dt
-                        metrics["steps_per_s"] = hp.log.info_interval / dt
-                        t_last, samples_done = time.perf_counter(), 0
+                        now = time.perf_counter()
+                        dt = rate_s + now - t_last
+                        metrics["audio_seconds_per_s"] = rate_samples / sr / dt
+                        metrics["steps_per_s"] = rate_steps / dt
+                        t_last, rate_steps, rate_samples, rate_s = now, 0, 0, 0.0
                         writer.log_training(metrics, step)
                         print("epoch %d | g %.04f m %.04f s %.04f d %.04f k %.04f r %.04f "
                               "i %.04f | gn %.02f dn %.02f | step %d" % (
@@ -178,6 +185,7 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
                                   metrics["grad_norm_d"], step))
                     if max_steps is not None and step >= max_steps:
                         break
+                rate_s += time.perf_counter() - t_last
 
                 if epoch % hp.log.save_interval == 0:
                     if metrics is not None:
@@ -207,6 +215,7 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
                 lr_scale *= nan_lr_factor
                 _, _, step, epoch = ckpt.restore_states(g_state, d_state, ckpt.load(latest))
                 last_healthy_step = step
+                rate_steps, rate_samples, rate_s = 0, 0, 0.0
                 # a fresh stream per restart: the same noise into the same state
                 # would diverge again
                 generator.manual_seed(reseed(seed, step * 1000 + restarts_left))
@@ -214,27 +223,10 @@ def train(hp: Config, name: str, chkpt_path: str | None = None,
                       f"lr scaled to x{lr_scale} ({restarts_left} restarts left)")
     finally:  # a divergence too: the trace window ends, the writer flushes
         if profiler is not None:
-            _stop_profiler(profiler, profile_dir, dev)
+            stop_trace(profiler, os.path.join(profile_dir, PROFILE_FILE), dev)
         if writer is not None:
             writer.close()
     return g_state, d_state, step
-
-
-def _start_profiler(dev: torch.device):
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    profiler = torch.profiler.profile(activities=acts)
-    profiler.start()
-    return profiler
-
-
-def _stop_profiler(profiler, profile_dir: str, dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    profiler.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    profiler.export_chrome_trace(os.path.join(profile_dir, "train_steps.json"))
 
 
 @torch.no_grad()

@@ -35,6 +35,7 @@ from ..models.synthesizer import SynthesizerTrn, slice_segments
 from ..parallel import ddp
 from ..utils.config import Config
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.rng import RowShard
 from . import losses
 
@@ -159,7 +160,8 @@ def audio_losses(hp: Config, d_model: Discriminator, fake: torch.Tensor,
     sc_loss, mag_loss = losses.multi_resolution_stft_loss(fake[..., 0], audio_real[..., 0],
                                                           resolutions, glob)
     n = fake.shape[0]
-    disc = d_model(torch.cat([fake, audio_real], dim=0))
+    with span("svc.step.d_forward"):
+        disc = d_model(torch.cat([fake, audio_real], dim=0))
     disc_fake = [([m[:n] for m in fmap], s[:n]) for fmap, s in disc]
     disc_real = [([m[n:] for m in fmap], s[n:]) for fmap, s in disc]
     terms = dict(loss_m=mel_loss, loss_s=(sc_loss + mag_loss) * tc.c_stft,
@@ -181,26 +183,34 @@ def loss_and_grads(hp: Config, g_model: SynthesizerTrn, d_model: Discriminator, 
     Under `glob` the losses are this rank's shares and the gradients this
     rank's part of the global batch's (summed over the ranks by the step)."""
     dev = next(g_model.parameters()).device
-    b = _to_device(batch, dev)
-    out = g_model(b["ppg"], b["vec"], b["pit"], b["spec"], b["spk"], b["ppg_l"], b["spec_l"],
-                  generator=generator, **switches)
-    audio_real = slice_segments(b["audio"], out.ids_slice * hp.data.hop_length,
-                                hp.data.segment_size)
-    metrics = audio_losses(hp, d_model, out.fake_audio, audio_real, glob)
-    c_kl = hp.train.c_kl
-    metrics["loss_k"] = losses.kl_loss(out.z_f, out.logs_q, out.m_p, out.logs_p, out.logdet_f,
-                                       out.spec_mask, glob) * c_kl
-    metrics["loss_r"] = losses.kl_loss(out.z_r, out.logs_p, out.m_q, out.logs_q, out.logdet_r,
-                                       out.spec_mask, glob) * c_kl
-    metrics["loss_i"] = losses.cosine_speaker_loss(b["spk"], out.spk_preds)
-    if glob is not None:
-        metrics["loss_i"] = metrics["loss_i"] / glob.world
-    loss_g = (metrics["score_loss"] + metrics["feat_loss"] + metrics["loss_m"]
-              + metrics["loss_s"] + metrics["loss_k"] + metrics["loss_r"] * 0.5
-              + metrics["loss_i"] * 2.0)
-    d_grads = torch.autograd.grad(metrics["loss_d"], list(d_model.parameters()),
-                                  retain_graph=True)
-    g_grads = torch.autograd.grad(loss_g, list(g_model.parameters()))
+    with span("svc.step.upload"):
+        b = _to_device(batch, dev)
+    with span("svc.step.g_forward"):
+        out = g_model(b["ppg"], b["vec"], b["pit"], b["spec"], b["spk"], b["ppg_l"],
+                      b["spec_l"], generator=generator, **switches)
+    with span("svc.step.audio_losses"):
+        audio_real = slice_segments(b["audio"], out.ids_slice * hp.data.hop_length,
+                                    hp.data.segment_size)
+        metrics = audio_losses(hp, d_model, out.fake_audio, audio_real, glob)
+    with span("svc.step.kl"):
+        c_kl = hp.train.c_kl
+        metrics["loss_k"] = losses.kl_loss(out.z_f, out.logs_q, out.m_p, out.logs_p,
+                                           out.logdet_f, out.spec_mask, glob) * c_kl
+        metrics["loss_r"] = losses.kl_loss(out.z_r, out.logs_p, out.m_q, out.logs_q,
+                                           out.logdet_r, out.spec_mask, glob) * c_kl
+        metrics["loss_i"] = losses.cosine_speaker_loss(b["spk"], out.spk_preds)
+        if glob is not None:
+            metrics["loss_i"] = metrics["loss_i"] / glob.world
+        loss_g = (metrics["score_loss"] + metrics["feat_loss"] + metrics["loss_m"]
+                  + metrics["loss_s"] + metrics["loss_k"] + metrics["loss_r"] * 0.5
+                  + metrics["loss_i"] * 2.0)
+    # the autograd engine runs the card's backward on its own thread while
+    # this one waits inside grad(): each span covers its pass's wall interval
+    with span("svc.step.d_backward"):
+        d_grads = torch.autograd.grad(metrics["loss_d"], list(d_model.parameters()),
+                                      retain_graph=True)
+    with span("svc.step.g_backward"):
+        g_grads = torch.autograd.grad(loss_g, list(g_model.parameters()))
     metrics["loss_g"] = loss_g
     return g_grads, d_grads, {k: v.detach() for k, v in metrics.items()}
 
@@ -231,17 +241,22 @@ def make_train_step(hp: Config, g_state: TrainState, d_state: TrainState):
     is the global batch's on every rank."""
     clip = hp.train.get("clip_grad_value")
     glob = ddp.GlobalBatch() if ddp.is_initialized() else None
+    calls = 0  # the unit id of the step's spans
 
     def train_step(batch, generator: torch.Generator | None = None) -> dict:
-        g_grads, d_grads, metrics = global_grads(hp, g_state.model, d_state.model, batch,
-                                                 generator, glob)
-        metrics["grad_norm_g"] = torch.nn.utils.get_total_norm(g_grads)
-        metrics["grad_norm_d"] = torch.nn.utils.get_total_norm(d_grads)
-        if clip is not None:
-            for grad in (*g_grads, *d_grads):
-                grad.clamp_(-clip, clip)
-        g_state.apply_gradients(g_grads)
-        d_state.apply_gradients(d_grads)
+        nonlocal calls
+        calls += 1
+        with span("svc.step", unit=calls):
+            g_grads, d_grads, metrics = global_grads(hp, g_state.model, d_state.model, batch,
+                                                     generator, glob)
+            with span("svc.step.update"):
+                metrics["grad_norm_g"] = torch.nn.utils.get_total_norm(g_grads)
+                metrics["grad_norm_d"] = torch.nn.utils.get_total_norm(d_grads)
+                if clip is not None:
+                    for grad in (*g_grads, *d_grads):
+                        grad.clamp_(-clip, clip)
+                g_state.apply_gradients(g_grads)
+                d_state.apply_gradients(d_grads)
         return metrics
 
     return train_step
