@@ -156,15 +156,17 @@ Phases (any failure exits non-zero without the final line):
 14. streaming: the snake kernel against its plain version at the five stage
    shapes of the streaming window (100-frame blocks after 50 frames of
    context: [1,160,750] .. [1,10,48000]); StreamingSvc at full base width
-   over 30 blocks of seeded features (wall per push, 91 snake launches a
-   block, one profiled block, the card against the CPU over 4 blocks and
+   over 30 blocks of seeded features (wall per push, a CUDA graph replay
+   a block, 91 snake launches a block counted from the graph's capture,
+   one profiled block, the card against the CPU over 4 blocks and
    blocks 1-3 against one forward on their window with the whole
    utterance's excitation, 5e-5 each); then audio in and out: the
    streaming extractors at the published widths (seeded random
    checkpoints) and push_audio over a 10 s synthetic voice in 1 s blocks,
-   lag 4 (wall and latency per block, each stage's share, 91 launches a
-   synthesis push, a streaming CREPE's flush path equal to the offline
-   decode, the first block's features card vs CPU at [audio-in]'s bounds).
+   lag 4 (wall and latency per block, each stage's share, a replay and
+   91 launches a synthesis push, a streaming CREPE's flush path equal to
+   the offline decode, the first block's features card vs CPU at
+   [audio-in]'s bounds).
 
 15. training with train.bf16_discriminator at base width (ms per step
    beside [train]'s float32 D, peak memory, the D scores within 0.05 mean
@@ -256,6 +258,7 @@ from whisper_vits_svc_tpu_torch.data.dataset import (
 from whisper_vits_svc_tpu_torch.infer import pipeline
 from whisper_vits_svc_tpu_torch.infer import retrieval as retrieval_mod
 from whisper_vits_svc_tpu_torch.infer import serving
+from whisper_vits_svc_tpu_torch.infer import stream as stream_mod
 from whisper_vits_svc_tpu_torch.infer import stream_extract
 from whisper_vits_svc_tpu_torch.infer.retrieval import DummyRetrieval
 from whisper_vits_svc_tpu_torch.infer.stream import StreamingSvc
@@ -1344,6 +1347,34 @@ def snake_dtypes(key=lambda x: str(x.dtype).removeprefix("torch.")):
         snake_cuda.snake_alias_cuda = orig
 
 
+@contextlib.contextmanager
+def captured_snakes(key):
+    """Count the direct snake kernel's launches by `key` (as snake_dtypes)
+    in each CUDA graph capture of a push forward, where they are recorded
+    once for every replay, which makes no call to count. Yields the list of
+    the captures' counts."""
+    orig = stream_mod._capture
+    seen: list = []
+
+    def capture(fn, dev):
+        with snake_dtypes(key) as calls:
+            out = orig(fn, dev)
+        seen.append(dict(calls))
+        return out
+
+    stream_mod._capture = capture
+    try:
+        yield seen
+    finally:
+        stream_mod._capture = orig
+
+
+def tile_key(x) -> str:
+    """The direct snake's input as the JAX package's kernels split it: T
+    no multiple of 128 (its `_kernel_padded`) or whole 128-wide tiles."""
+    return "padded" if x.shape[-1] % 128 else "tiled"
+
+
 def extras_request(workdir: Path, argv: list, device, n_snakes: int, hop: int) -> dict:
     """One request through the CLI's `main` with features in, in a fresh
     working directory, every count set to 0 just before it and read just
@@ -2369,9 +2400,12 @@ def _percentile(xs, q: float) -> float:
 def stream_phase(base_hp, device="cuda", n_snakes: int = 91,
                  blocks: int = STREAM_BLOCKS) -> dict:
     """StreamingSvc at hp's width on seeded features, noise_scale=0: two
-    warm-up blocks, then `blocks` blocks with every count set to 0 before
-    them and read after (n_snakes launches a block, no other kernel), the
-    wall of each push; one more block profiled; the first STREAM_CPU_BLOCKS
+    warm-up blocks (the first captures the forward's CUDA graph), then
+    `blocks` blocks with every count set to 0 before them and read after
+    (a graph replay a block; n_snakes launches a block, counted as the
+    capture's launches once a replay, split by tile_key the same way; no
+    other kernel), the wall of each push; one more block profiled, its
+    n_snakes snake kernels counted on the device; the first STREAM_CPU_BLOCKS
     blocks on the CPU with the same weights; STREAM_WINDOW_BLOCKS held to
     one SynthesizerInfer forward on their [context | block] window with the
     whole utterance's excitation sliced at it."""
@@ -2393,25 +2427,42 @@ def stream_phase(base_hp, device="cuda", n_snakes: int = 91,
             walls.append(time.perf_counter() - t0)
         return outs, walls, svc
 
-    run(model, device, 2)
-    if torch.device(device).type == "cuda":
+    on_card = torch.device(device).type == "cuda"
+    with captured_snakes(tile_key) as captured:
+        run(model, device, 2)
+    check(len(captured) == int(on_card), f"stream: {len(captured)} graph captures on {device}")
+    if on_card:
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with snake_dtypes(key=lambda x: "padded" if x.shape[-1] % 128 else "tiled") as by_tile:
+    replays0, eager0 = stream_mod.graph_replays, stream_mod.eager_forwards
+    with snake_dtypes(key=tile_key) as by_tile:  # the forwards run op by op
         outs, walls, svc = run(model, device, blocks)
     counts = read_counts()
-    check(counts["direct"] == n_snakes * blocks and counts["bwd"] == counts["strips"]
-          == counts["mma"] == counts["amp"] == 0,
-          f"stream: {counts} launches in {blocks} blocks, expected {n_snakes} direct a block")
+    replays = stream_mod.graph_replays - replays0
+    for key, n in (captured[0] if captured else {}).items():
+        by_tile[key] = by_tile.get(key, 0) + n * replays
+    check(counts["direct"] == sum(by_tile.values()) == n_snakes * blocks
+          and counts["bwd"] == counts["strips"] == counts["mma"] == counts["amp"] == 0,
+          f"stream: {counts} launches ({dict(by_tile)} by tile) in {blocks} blocks, expected "
+          f"{n_snakes} direct a block")
+    want = blocks if on_card else 0
+    check(replays == want and stream_mod.eager_forwards - eager0 == blocks - want,
+          f"stream: {replays} graph replays and {stream_mod.eager_forwards - eager0} eager "
+          f"forwards in {blocks} blocks on {device}, expected a replay a block on the card")
     audio = np.concatenate(outs)
     rms = float(np.sqrt(np.mean(np.square(audio))))
     check(audio.shape == (blocks * STREAM_BLOCK * hop,) and bool(np.isfinite(audio).all())
           and rms > 1e-3, f"stream output {audio.shape}, rms {rms}")
     peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
     prof = None
-    if torch.device(device).type == "cuda":
+    if on_card:
         sl = slice(0, STREAM_BLOCK)
+        replays0 = stream_mod.graph_replays
         prof = profile(lambda: svc.push(ppg[sl], vec[sl], pit[sl]))
+        check(stream_mod.graph_replays - replays0 == 1
+              and prof["counts"]["snake_fwd"] == n_snakes,
+              f"stream: the profiled push ran {prof['counts']['snake_fwd']} snake kernels in "
+              f"{stream_mod.graph_replays - replays0} replays, expected {n_snakes} in one")
 
     # the tight check: block k against one forward on its window, with the
     # whole utterance's excitation (its cumulative phase stays below ~400
@@ -2482,7 +2533,8 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
     `widths` (seeded random checkpoints in the reference layouts, through
     the port's loaders) and StreamingSvc.push_audio on a synthetic voice in
     STREAM_AUDIO_BLOCK blocks, then the flush. Checks the output length
-    (2x the 16 kHz samples), n_snakes launches per synthesis push, a
+    (2x the 16 kHz samples), n_snakes launches per synthesis push (and,
+    on the card, n_snakes snake kernels a replay in one profiled block), a
     StreamingCrepe's flush path against the offline decode of the same
     audio, and the first block's features on the card against the CPU."""
     root = Path(tempfile.mkdtemp(prefix="svc_stream_audio_"))
@@ -2519,10 +2571,11 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
                 walls.append(time.perf_counter() - t0)
             return svc, outs, walls
 
-        stream(1)  # warm-up: cuDNN plans, first launches
+        stream(1)  # warm-up: cuDNN plans, first launches, the forward's CUDA graph
         if torch.device(device).type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        replays0 = stream_mod.graph_replays
         with stream_probes(device) as rec:
             svc, outs, walls = stream(len(blocks))
             blocks_rec = {k: list(v) for k, v in rec.items()}  # the blocks, not the flush
@@ -2543,6 +2596,19 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
               == counts["mma"] == counts["amp"] == 0,
               f"stream audio: {counts} launches in {pushes} synthesis pushes "
               f"({rec['synthesis_snakes']}), expected {n_snakes} direct a push")
+        replays = stream_mod.graph_replays - replays0
+        check(replays == (pushes if torch.device(device).type == "cuda" else 0),
+              f"stream audio: {replays} graph replays in {pushes} synthesis pushes on "
+              f"{device}, expected a replay a push on the card")
+        prof_snakes = None
+        if torch.device(device).type == "cuda":
+            replays0 = stream_mod.graph_replays
+            prof = profile(lambda: stream(1))
+            replays = stream_mod.graph_replays - replays0
+            prof_snakes = prof["counts"]["snake_fwd"]
+            check(replays >= 1 and prof_snakes == n_snakes * replays,
+                  f"stream audio: one profiled block ran {prof_snakes} snake kernels in "
+                  f"{replays} replays, expected {n_snakes} a replay")
 
         # a StreamingCrepe over the same blocks, finished: its path against
         # the offline decode (the same 64-frame batches, the trellis on the
@@ -2578,7 +2644,7 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
                                              f"{err:.3e} above {AUDIO_IN_ATOL[key]}")
         pit_equal = float(np.mean(got[2] == ref[2]))
         return dict(walls=walls, flush_s=flush_s, rec=blocks_rec, counts=counts, pushes=pushes,
-                    peak=peak, rms=rms, errs=errs, pit_equal=pit_equal,
+                    prof_snakes=prof_snakes, peak=peak, rms=rms, errs=errs, pit_equal=pit_equal,
                     crepe_frames=len(frames), path_diff_512=path_diff_512,
                     block_s=STREAM_AUDIO_BLOCK / 16000, seconds=seconds,
                     phase_s=time.perf_counter() - phase_t0)
@@ -2759,7 +2825,8 @@ def report_stream_audio(sa: dict, smi: str) -> None:
           f"the wall = {1e3 * sa['block_s'] + np.median(walls):.2f} ms at the median; flush "
           f"{1e3 * sa['flush_s']:.2f} ms; mean ms a block by stage "
           + json.dumps({k: round(v, 2) for k, v in share.items()})
-          + f"; {sa['pushes']} synthesis pushes, snake launches {sa['counts']['direct']}; "
+          + f"; {sa['pushes']} synthesis pushes, snake launches {sa['counts']['direct']} "
+          f"(one profiled block: {sa['prof_snakes']} snake kernels on the device); "
           f"peak device memory {sa['peak'] / 2**30:.2f} GiB | {smi}", flush=True)
     print(f"[stream-audio] the streaming CREPE's flush path equals the offline decode on all "
           f"{sa['crepe_frames']} frames (64-frame batches; {sa['path_diff_512']} frames differ "
@@ -4142,7 +4209,7 @@ def main() -> int:
     try:
         pr = prep_phase(BASE_MODEL_CONFIG, flow_root)
         report_prep(pr, smi)
-        with snake_dtypes(key=lambda x: "padded" if x.shape[-1] % 128 else "tiled") as tiles:
+        with snake_dtypes(key=tile_key) as tiles:
             pf = prep_flow_phase(BASE_MODEL_CONFIG, flow_root, pr)
             report_prep_flow(pf, smi)
             wu = webui_phase(BASE_MODEL_CONFIG, flow_root, pr, pf)

@@ -31,6 +31,8 @@ def pytest_configure(config):
         "slow: heavy compile / long-running tests excluded from the fast tier "
         "(run `pytest -m 'not slow'` for the <2 min per-module sweep)",
     )
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips inside the test when there is none")
     # Persistent XLA compile cache: the tier's wall time is compile-dominated
     # on CPU, and the cache is keyed by HLO so stale hits are impossible —
     # re-runs skip every unchanged compile. SVC_TEST_CACHE overrides the

@@ -11,7 +11,8 @@ its tile plan, as the source computes it.
 
 `amp_iter` takes the plain PyTorch version (`amp_iter_ref`) only for a CPU
 tensor; for a CUDA tensor it launches the kernel or raises. The kernel is
-forward only, as in the JAX package. `launches` counts kernel launches.
+forward only, as in the JAX package. `launches` counts kernel launches
+(`counts`, `add_counts`).
 """
 
 from __future__ import annotations
@@ -41,6 +42,17 @@ MIN_TILE = 128
 H100_SMS = 132
 
 launches = 0
+
+
+def counts() -> dict:
+    """This module's launch counter, by name, as snake_cuda.counts."""
+    return {"launches": launches}
+
+
+def add_counts(delta: dict) -> None:
+    """Add `delta` to the counter, as snake_cuda.add_counts."""
+    global launches
+    launches += delta.get("launches", 0)
 
 
 def use_fused_iter(c: int, t: int, b: int = 1) -> bool:

@@ -35,7 +35,8 @@ forward only, as in the JAX package. Without a gradient the direct
 forward goes through the operator `svc::snake_alias` (`snake_alias_op`),
 which torch.export keeps as one node: the serving artifact
 (infer/serving.py) runs the kernel too. `launches`, `launches_bwd`,
-`launches_strips` and `launches_mma` count kernel launches.
+`launches_strips` and `launches_mma` count kernel launches (`counts`,
+`add_counts`).
 """
 
 from __future__ import annotations
@@ -81,6 +82,20 @@ launches = 0
 launches_bwd = 0
 launches_strips = 0
 launches_mma = 0
+COUNTERS = ("launches", "launches_bwd", "launches_strips", "launches_mma")
+
+
+def counts() -> dict:
+    """This module's launch counters, by name."""
+    return {name: globals()[name] for name in COUNTERS}
+
+
+def add_counts(delta: dict) -> None:
+    """Add `delta` (a counter's name -> launches, as `counts` gives them)
+    to the counters: the launches of a CUDA graph's replay, which runs no
+    Python to count them."""
+    for name, n in delta.items():
+        globals()[name] += n
 
 
 def _nvcc() -> str:
