@@ -1,0 +1,9 @@
+"""Device-idle ms per wave push inside the program's `svc.push.forward`
+span, the synthesis's forward within `svc.push_audio` (trace/program.py):
+`push_forward_idle_ms.py` of the live cell, on the wave cell's units."""
+
+from benchmark.trace.program import idle_ms_per_unit
+
+
+def read(ctx):
+    return idle_ms_per_unit(ctx, "bench.push_audio", "svc.push_audio", ("svc.push.forward",))

@@ -103,6 +103,33 @@ def test_pred_ppg_masked_tail_matches_jax(whisper_pair):
     assert np.abs(noisy - got).max() > 1e-3
 
 
+@pytest.mark.parametrize("seconds, whole, first_half", [(1, 0.10432970523834229,
+                                                          0.00278489850461483),
+                                                         (4, 0.1357460618019104,
+                                                          0.0007592290639877319)])
+def test_short_window_natural_against_padded_gap_is_pinned(whisper_pair, seconds, whole,
+                                                           first_half):
+    """A window shorter than 15 s: the stream's `ppg_natural` (natural
+    length, as whisper-vits-svc runs it) against the offline `pred_ppg`'s
+    zero-padded, masked row (as the JAX package runs it). The two paths
+    give one utterance different PPGs; this pins by how much, largest at
+    the window's last frame, so that a change to either shows here (1e-3
+    of the gap: far above float32 rounding). A full window is one row on
+    both paths, and the same to the bit."""
+    _, _, pm = whisper_pair
+    audio = (np.random.default_rng(seconds).standard_normal(seconds * SR)
+             * 0.2).astype(np.float32)
+    nat, pad = pwhisper.ppg_natural(pm, audio), pwhisper.pred_ppg(pm, audio, rng=None)
+    gap = np.abs(nat - pad)
+    assert nat.shape == pad.shape == (seconds * 50, 64)
+    assert float(gap.max()) == pytest.approx(whole, rel=1e-3)
+    assert float(gap[-1].max()) == float(gap.max())
+    assert float(gap[: len(gap) // 2].max()) == pytest.approx(first_half, rel=1e-3)
+    full = (np.random.default_rng(15).standard_normal(15 * SR) * 0.2).astype(np.float32)
+    np.testing.assert_array_equal(pwhisper.ppg_natural(pm, full),
+                                  pwhisper.pred_ppg(pm, full, rng=None))
+
+
 def test_whisper_port_weights_into_jax(whisper_pair):
     """port -> JAX: the JAX converter reads the port's state_dict (under the
     reference's "encoder." prefix) back into the tree it came from, and the

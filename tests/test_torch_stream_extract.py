@@ -1,10 +1,11 @@
 """The port's streaming extractors against the JAX package's classes, with
 the same weights (JAX-initialised, carried over by models/convert.py):
-whisper's sliding window and HuBERT's carried context at rtol 1e-4 /
-atol 1e-5; CREPE (capacity "tiny", seeded) whose flush path must equal the
-port's offline Viterbi path and the JAX streaming path exactly; the
-composed pitch against the offline pitch; push_audio end to end against
-the JAX package at noise_scale=0."""
+whisper's sliding window (shorter than 15 s at its natural length, as the
+port runs it: the JAX class is held to that through `_NaturalWhisper`) and
+HuBERT's carried context at rtol 1e-4 / atol 1e-5; CREPE (capacity
+"tiny", seeded) whose flush path must equal the port's offline Viterbi path
+and the JAX streaming path exactly; the composed pitch against the offline
+pitch; push_audio end to end against the JAX package at noise_scale=0."""
 
 import numpy as np
 import pytest
@@ -37,6 +38,22 @@ def _perturbed(tree, seed: int, scale: float):
     return jax.tree.map(
         lambda a: np.asarray(a) + (scale * rng.standard_normal(np.shape(a))).astype(np.float32),
         tree)
+
+
+class _NaturalWhisper(jse.StreamingWhisper):
+    """The JAX class with every window run at its length, as the port's
+    StreamingWhisper runs it (and whisper-vits-svc every window): the JAX
+    class zero-pads a window shorter than 15 s to a masked row, whose end
+    differs from the natural run's (the STFT's reflection, the stem's
+    zero padding), and attention carries that to every frame."""
+
+    def push(self, samples):
+        samples = np.asarray(samples, np.float32)
+        self.buf = np.concatenate([self.buf, samples])[-self.window :]
+        self.total += len(samples)
+        self._ppg = jwhisper.ppg_window_batch(self.model, self.params, self.buf[None],
+                                              np.asarray([len(self.buf)]), rng=None)[0]
+        self._start_frame = (self.total - len(self.buf)) // se.HOP
 
 
 def _sine(seconds, f0=220.0, glide=0.0, seed=0):
@@ -104,20 +121,24 @@ def models():
 
 
 def test_stream_whisper_matches_jax(models):
-    """Blocks of 3 s through the warm-up (a masked window) and past 15 s
-    (the rolling window): after every push the newest window's frames
-    against the JAX class's, and the bookkeeping alike."""
+    """Blocks of 3 s through the warm-up (a window shorter than 15 s, at its
+    natural length) and past 15 s (the rolling window): after every push
+    the newest window's frames against the JAX class's, and the bookkeeping
+    alike; a full window equals the JAX class's own padded row."""
     jm, params, pm = models["whisper"]
     audio = (np.random.default_rng(3).standard_normal(18 * SR) * 0.2).astype(np.float32)
-    ref, got = jse.StreamingWhisper(jm, params), se.StreamingWhisper(pm, device="cpu")
+    ref, got = _NaturalWhisper(jm, params), se.StreamingWhisper(pm, device="cpu")
+    padded = jse.StreamingWhisper(jm, params)
     block = 3 * SR
     for s in range(0, len(audio), block):
-        ref.push(audio[s : s + block])
-        got.push(audio[s : s + block])
-        assert got._start_frame == ref._start_frame
+        for w in (ref, got, padded):
+            w.push(audio[s : s + block])
+        assert got._start_frame == ref._start_frame == padded._start_frame
         n = got.total // se.HOP
         lo = max(got._start_frame, n - 200)
         np.testing.assert_allclose(got.frames(lo, n), ref.frames(lo, n), **FEAT_TOL)
+        if len(got.buf) == got.window:
+            np.testing.assert_allclose(got.frames(lo, n), padded.frames(lo, n), **FEAT_TOL)
     assert got._start_frame == 3 * SR // se.HOP
 
 
@@ -171,8 +192,10 @@ def _extractor(models, port: bool, **kw):
     if port:
         return se.StreamingExtractor(models["whisper"][2], models["hubert"][2],
                                      models["crepe"][2], device="cpu", **kw)
-    return jse.StreamingExtractor(whisper=models["whisper"][:2], hubert=models["hubert"][:2],
-                                  crepe=models["crepe"][:2], **kw)
+    ex = jse.StreamingExtractor(whisper=models["whisper"][:2], hubert=models["hubert"][:2],
+                                crepe=models["crepe"][:2], **kw)
+    ex.whisper = _NaturalWhisper(*models["whisper"][:2])
+    return ex
 
 
 def _run_extractor(ex, audio, block):

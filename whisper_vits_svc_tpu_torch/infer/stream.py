@@ -203,6 +203,7 @@ class StreamingSvc:
         self._length = torch.tensor([self._total], device=self.dev)
         self.extractor = None
         self._pushes = 0  # the unit id of the push's spans
+        self._audio_pushes = 0  # the unit id of push_audio's and flush_audio's spans
         self._tensor_dicts = tensor_dicts(model)
 
         self.phase = torch.zeros((1, N_HARMONICS), dtype=torch.float32, device=self.dev)
@@ -237,18 +238,23 @@ class StreamingSvc:
     def push_audio(self, samples16k: np.ndarray) -> np.ndarray:
         """16 kHz source block -> 32 kHz converted audio, through the
         streaming extractors; the output trails the input by the
-        extractor's lag (default 80 ms) plus the block buffering."""
-        ppg2, vec2, pit = self.extractor.push(samples16k)
-        if len(pit) == 0:
-            return np.zeros(0, np.float32)
-        return self.push(ppg2, vec2, pit)
+        extractor's lag (default 80 ms) plus the block buffering. Opens
+        `svc.push_audio` (unit id: the stream's push_audio and flush_audio
+        count) around the extractor's `svc.extract` and the `svc.push`."""
+        return self._audio(self.extractor.push, samples16k)
 
     def flush_audio(self) -> np.ndarray:
-        """Drain the extractor's lag tail at the end of the stream."""
-        ppg2, vec2, pit = self.extractor.flush()
-        if len(pit) == 0:
-            return np.zeros(0, np.float32)
-        return self.push(ppg2, vec2, pit)
+        """Drain the extractor's lag tail at the end of the stream (the
+        same spans as push_audio)."""
+        return self._audio(self.extractor.flush)
+
+    def _audio(self, extract, *args) -> np.ndarray:
+        self._audio_pushes += 1
+        with span("svc.push_audio", unit=self._audio_pushes):
+            ppg2, vec2, pit = extract(*args)
+            if len(pit) == 0:
+                return np.zeros(0, np.float32)
+            return self.push(ppg2, vec2, pit)
 
     def _graph(self) -> _PushGraph | None:
         """The graph this stream's pushes replay: on the card, shared by

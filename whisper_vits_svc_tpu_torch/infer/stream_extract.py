@@ -10,13 +10,25 @@
   * HuBERT: each block runs on [carried context | block] (2 s by default,
     one shape); only the new block's frames are emitted.
   * Whisper: the whole sliding 15 s window is recomputed each block and the
-    newest frames kept.
+    newest frames kept; while the stream is shorter than 15 s the window
+    runs at its natural length, as whisper-vits-svc runs every window
+    (`whisper.ppg_natural`, which says how a zero-padded, masked row
+    differs).
 
 All three emit on the shared 320-hop grid behind one `lag_frames` pointer
 (default 4 frames, 80 ms): CREPE's right support, the mean-5 pitch filter's
 centred window and whisper's and HuBERT's edge frames lie inside the lag.
 The models run on their device (the card unless the caller asks for the
 CPU); the trellis and the bookkeeping run on the host.
+
+`StreamingExtractor.push` opens the span `svc.extract` (utils/profiling.py)
+with one child a stage, each closed after the stage's read-back so that
+its device work lies inside it: `svc.extract.whisper`, `.hubert`, `.crepe`
+(holding `.crepe.trellis`, the host's trellis) and `.emit`; `flush` opens
+`.crepe` and `.emit`. `whisper_windows` and `hubert_windows` count the
+windows run, `crepe_frames` the CREPE frames the stream needed and
+`crepe_rows` the rows launched for them, the static batch's padding
+included (`counts`, `add_counts`).
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from ..models.crepe import (
     frequency_to_bins,
     nan_mean_filter,
 )
+from ..utils.profiling import span
 from .stream import model_on
 
 HOP = 320                      # the shared 320-hop feature grid (samples)
@@ -43,12 +56,30 @@ CREPE_WINDOW = 1024            # a CREPE frame's support (samples)
 _CREPE_BATCH = 64              # static batch of streamed CREPE frames
 VEC_DIM = 256                  # HuBERT-soft units
 
+whisper_windows = 0  # sliding whisper windows run
+hubert_windows = 0   # carried-context HuBERT windows run
+crepe_frames = 0     # CREPE frames the streams needed
+crepe_rows = 0       # CREPE rows launched for them (whole static batches)
+COUNTERS = ("whisper_windows", "hubert_windows", "crepe_frames", "crepe_rows")
+
+
+def counts() -> dict:
+    """This module's counters, by name."""
+    return {name: globals()[name] for name in COUNTERS}
+
+
+def add_counts(delta: dict) -> None:
+    """Add `delta` (a counter's name -> count, as `counts` gives them) to
+    the counters."""
+    for name, n in delta.items():
+        globals()[name] += n
+
 
 class StreamingWhisper:
     """Sliding 15 s window PPG: `push` appends to a rolling buffer of at most
-    15 s and recomputes the whole window through `ppg_window_batch` (the
-    offline path's masked window, no mel noise); `frames(lo, hi)` returns
-    the global 320-hop frames [lo, hi) of the newest window."""
+    15 s and recomputes the whole buffer at its natural length through
+    `whisper.ppg_natural` (no mel noise); `frames(lo, hi)` returns the
+    global 320-hop frames [lo, hi) of the newest window."""
 
     def __init__(self, model: whisper_mod.WhisperEncoder,
                  device: str | torch.device | None = "cuda"):
@@ -61,15 +92,14 @@ class StreamingWhisper:
         self._start_frame = 0     # global 320-hop index of the window's frame 0
 
     def push(self, samples: np.ndarray):
+        global whisper_windows
         samples = np.asarray(samples, np.float32)
         assert len(samples) % HOP == 0, "block must be a multiple of 320"
         self.buf = np.concatenate([self.buf, samples])[-self.window :]
         self.total += len(samples)
-        row = np.zeros((1, self.window), np.float32)
-        row[0, : len(self.buf)] = self.buf
-        n = np.asarray([len(self.buf)], np.int64)
-        self._ppg = whisper_mod.ppg_window_batch(self.model, row, n, rng=None)[0]
+        self._ppg = whisper_mod.ppg_natural(self.model, self.buf)
         self._start_frame = (self.total - len(self.buf)) // HOP
+        whisper_windows += 1
 
     def frames(self, lo: int, hi: int) -> np.ndarray:
         assert lo >= self._start_frame and hi <= self.total // HOP
@@ -95,6 +125,7 @@ class StreamingHubert:
         self._start_frame = 0
 
     def push(self, samples: np.ndarray):
+        global hubert_windows
         samples = np.asarray(samples, np.float32)
         assert len(samples) % HOP == 0
         self.buf = np.concatenate([self.buf, samples])[-self.win :]
@@ -104,6 +135,7 @@ class StreamingHubert:
         n = np.asarray([len(self.buf)], np.int64)
         self._vec = hubert_mod.vec_window_batch(self.model, row, n)[0]
         self._start_frame = (self.total - len(self.buf)) // HOP
+        hubert_windows += 1
 
     def frames(self, lo: int, hi: int) -> np.ndarray:
         assert lo >= self._start_frame
@@ -162,17 +194,21 @@ class StreamingCrepe:
 
     def _advance(self, upto_frame: int):
         """Run the trellis through global frames (head, upto_frame]."""
+        global crepe_frames, crepe_rows
         new = list(range(self.head + 1, upto_frame + 1))
         if not new:
             return
         obs = self._obs_log(self._frame_rows(new))
-        for t, o in zip(new, obs):
-            if t == 0:
-                self.value = o + np.float32(np.log(1.0 / PITCH_BINS))
-            else:
-                scores = self.value[:, None] + self.log_trans  # [from, to]
-                self.ptrs[t] = scores.argmax(axis=0)
-                self.value = scores.max(axis=0) + o
+        crepe_frames += len(new)
+        crepe_rows += -(-len(new) // _CREPE_BATCH) * _CREPE_BATCH
+        with span("svc.extract.crepe.trellis"):
+            for t, o in zip(new, obs):
+                if t == 0:
+                    self.value = o + np.float32(np.log(1.0 / PITCH_BINS))
+                else:
+                    scores = self.value[:, None] + self.log_trans  # [from, to]
+                    self.ptrs[t] = scores.argmax(axis=0)
+                    self.value = scores.max(axis=0) + o
         self.head = upto_frame
 
     def push(self, samples: np.ndarray):
@@ -275,13 +311,21 @@ class StreamingExtractor:
         samples = np.asarray(samples, np.float32)
         assert len(samples) == self.block, "push exactly block_samples"
         self.total += len(samples)
-        self.whisper.push(samples)
-        self.hubert.push(samples)
-        self.crepe.push(samples)
-        return self._emit(self.total // HOP - self.lag)
+        with span("svc.extract"):
+            with span("svc.extract.whisper"):
+                self.whisper.push(samples)
+            with span("svc.extract.hubert"):
+                self.hubert.push(samples)
+            with span("svc.extract.crepe"):
+                self.crepe.push(samples)
+            with span("svc.extract.emit"):
+                return self._emit(self.total // HOP - self.lag)
 
     def flush(self):
         """Emit the lag tail (the offline right zero padding; the final
         backtrace is the offline Viterbi path)."""
-        self.crepe.finish()
-        return self._emit(self.total // HOP)
+        with span("svc.extract"):
+            with span("svc.extract.crepe"):
+                self.crepe.finish()
+            with span("svc.extract.emit"):
+                return self._emit(self.total // HOP)

@@ -202,12 +202,34 @@ def ppg_window_batch(model: WhisperEncoder, windows: np.ndarray, n_samples: np.n
     return out.cpu().numpy() if as_numpy else out
 
 
+def ppg_natural(model: WhisperEncoder, audio16k: np.ndarray,
+                rng: torch.Generator | None = None) -> np.ndarray:
+    """PPG [len // 320, n_state] of one window of at most 15 s (a whole
+    number of 320-sample frames) run at its natural length, with nothing
+    padded or masked, as whisper-vits-svc runs every window
+    (whisper/inference.py:43-50). The streaming extractor runs each of its
+    windows so.
+
+    The zero-padded, masked row that `pred_ppg` gives its last window (and
+    preprocessing gives its short rows) differs from this at every frame:
+    the STFT reflects at the window's end where the padded row has zeros,
+    the stem's convolutions pad with zeros where the padded row has
+    floored mel frames, and attention carries the difference to the whole
+    window. `tests/test_torch_extractors.py` pins that gap; the offline
+    paths keep the padded row, as the JAX package computes it."""
+    audio16k = np.asarray(audio16k, np.float32)
+    assert 0 < len(audio16k) <= WINDOW_SAMPLES and len(audio16k) % PPG_HOP == 0
+    return ppg_window_batch(model, audio16k[None], np.asarray([len(audio16k)], np.int64),
+                            rng)[0]
+
+
 def pred_ppg(model: WhisperEncoder, audio16k: np.ndarray,
              rng: torch.Generator | None = None) -> np.ndarray:
     """Whole-utterance PPG [len // 320, n_state] (reference
     whisper/inference.py:32-62): 15 s windows, the remainder zero-padded to
     a whole window with a length mask, all in one batched call; per-window
-    outputs cut to window_samples // 320 frames and concatenated."""
+    outputs cut to window_samples // 320 frames and concatenated. The
+    remainder's window is not `ppg_natural`'s (see there)."""
     audln = len(audio16k)
     n_full = audln // WINDOW_SAMPLES
     rem = audln - n_full * WINDOW_SAMPLES
