@@ -6,12 +6,27 @@
 Phases (any failure exits non-zero without the final line):
 1. device: CUDA must be present (no CPU fallback); prints the card's name and
    power limit from nvidia-smi;
-2. build: compiles the five sources under csrc/ (snake_alias, snake_alias_bwd,
-   snake_alias_strips, snake_alias_mma, amp_iter) with nvcc, one process per
-   source, started together, and times the build; where build/prev_kernels/
-   holds an earlier version's snake_alias_mma.cu, amp_iter.cu and
-   snake_alias.cuh (a copy kept out of git), builds those two sources in
-   the same batch;
+2. build: compiles the six sources under csrc/ (snake_alias, snake_alias_bwd,
+   snake_alias_strips, snake_alias_mma, amp_iter, viterbi_trellis) with nvcc,
+   one process per source, started together, and times the build; where
+   build/prev_kernels/ holds an earlier version's snake_alias_mma.cu,
+   amp_iter.cu and snake_alias.cuh (a copy kept out of git), builds those
+   two sources in the same batch;
+2b. [trellis]: CREPE's Viterbi trellis kernel against its plain version,
+   on the card and on the CPU, values and pointers bitwise equal, at 1, 50,
+   64 and 2,000 frames of observations with masked bins, with and without
+   planted ties, from the first frame, from a carried value and from a
+   large carried value (~-8,000), one launch a call (the value bins whose
+   bits differ, the largest difference and the pointer rows that differ
+   are counted and printed); times at a push's 50 frames: the kernel (CUDA
+   events), the card path of a stream's push (upload, launch, the int16
+   pointers and the value back, host clock), the CPU stream's numpy
+   trellis and the plain version on the card and on the CPU; the kernel at
+   2,000 frames; the bound of each from this card's latencies (an empty
+   kernel's launch, a shuffle level of a first-index maximum, an exchange
+   across a block's warps: chains built from TRELLIS_PROBE_SOURCE into
+   build/latency_probe/), the launch plus 9 levels and one exchange a
+   frame;
 3. kernel vs plain: the snake kernel against its plain PyTorch version at the
    five base-width stage shapes of a 1020-frame chunk and at odd shapes, in
    float32 and bfloat16, with CUDA-event times (inputs rotated over >100 MB
@@ -164,9 +179,10 @@ Phases (any failure exits non-zero without the final line):
    streaming extractors at the published widths (seeded random
    checkpoints) and push_audio over a 10 s synthetic voice in 1 s blocks,
    lag 4 (wall and latency per block, each stage's share, a replay and
-   91 launches a synthesis push, a streaming CREPE's flush path equal to
-   the offline decode, the first block's features card vs CPU at
-   [audio-in]'s bounds).
+   91 launches a synthesis push, one trellis launch a push and at the
+   flush with every CREPE frame's trellis on the card, a streaming CREPE's
+   flush path equal to the offline decode, the first block's features card
+   vs CPU at [audio-in]'s bounds).
 
 15. training with train.bf16_discriminator at base width (ms per step
    beside [train]'s float32 D, peak memory, the D scores within 0.05 mean
@@ -269,7 +285,7 @@ from whisper_vits_svc_tpu_torch.models import whisper as whisper_mod
 from whisper_vits_svc_tpu_torch.models.synthesizer import slice_segments
 from whisper_vits_svc_tpu_torch.nn.nsf import source_hn_nsf
 from whisper_vits_svc_tpu_torch.nn.snake import snake_alias_fused_cm
-from whisper_vits_svc_tpu_torch.ops import amp_cuda, snake_cuda
+from whisper_vits_svc_tpu_torch.ops import amp_cuda, snake_cuda, viterbi_cuda
 from whisper_vits_svc_tpu_torch.ops import stft as stft_mod
 from whisper_vits_svc_tpu_torch.parallel import ddp as tddp
 from whisper_vits_svc_tpu_torch.parallel import sharding
@@ -406,6 +422,9 @@ REPLACES_STRIPS = "whisper_vits_svc_tpu/ops/pallas_snake.py:539"
 SOURCE_STRIPS = "whisper_vits_svc_tpu_torch/csrc/snake_alias_strips.cu"
 REPLACES_MMA = "whisper_vits_svc_tpu/ops/pallas_snake.py:280"
 SOURCE_MMA = "whisper_vits_svc_tpu_torch/csrc/snake_alias_mma.cu"
+# a lax.scan, not a Pallas kernel: the port's kernel for a scan on the hot path
+REPLACES_TRELLIS = "whisper_vits_svc_tpu/models/crepe.py:148"
+SOURCE_TRELLIS = "whisper_vits_svc_tpu_torch/csrc/viterbi_trellis.cu"
 # an earlier version's tensor-core snake and fused AMP kernels, for the
 # comparison: a copy of their files (snake_alias_mma.cu, amp_iter.cu and the
 # snake_alias.cuh they include) kept out of git (build/ is ignored)
@@ -2491,6 +2510,235 @@ def stream_phase(base_hp, device="cuda", n_snakes: int = 91,
                 rms=rms, by_tile=dict(by_tile))
 
 
+TRELLIS_FRAMES = (1, 50, 64, 2000)  # frame counts of the kernel-vs-plain checks
+TRELLIS_PUSH = 50                   # the frames a 1 s push advances
+TRELLIS_LEVELS = 9                  # ceil(log2 360): a first-index maximum's depth
+TRELLIS_CHAIN = 10_000              # dependent steps in each latency chain
+# latency chains for the trellis's floor (a copy kept out of git, built at run time)
+TRELLIS_PROBE = Path(__file__).resolve().parent / "build" / "latency_probe" / "trellis_latency.cu"
+TRELLIS_PROBE_SOURCE = r"""// Latencies behind the floor of the Viterbi trellis
+// (csrc/viterbi_trellis.cu), each in one block of 384 threads, the kernel's
+// 12 warps: which = 0, an empty kernel (the launch); 1, `count` dependent
+// shuffle levels of a first-index maximum over (value, index) pairs, as the
+// kernel's scans make them; 2, `count` dependent exchanges across the warps:
+// a store to shared memory, a barrier, a load of another warp's cell.
+#include <cuda_runtime.h>
+
+namespace {
+
+struct Best {
+  float v;
+  int i;
+};
+
+__device__ __forceinline__ Best pick(Best lo, Best hi) { return hi.v > lo.v ? hi : lo; }
+
+__global__ void empty_kernel() {}
+
+__global__ void shuffle_chain(float* out, int count) {
+  const int lane = threadIdx.x & 31;
+  Best p{static_cast<float>(threadIdx.x * 37 % 101), static_cast<int>(threadIdx.x)};
+  for (int l = 0; l < count; l += 5) {
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Best up{__shfl_up_sync(0xffffffffu, p.v, d), __shfl_up_sync(0xffffffffu, p.i, d)};
+      if (lane >= d) p = pick(up, p);
+    }
+  }
+  out[threadIdx.x] = p.v + static_cast<float>(p.i);
+}
+
+__global__ void exchange_chain(float* out, int count) {
+  __shared__ float cell[2][384];
+  const int j = threadIdx.x;
+  float v = static_cast<float>(j);
+  for (int r = 0; r < count; ++r) {
+    cell[r & 1][j] = v;
+    __syncthreads();
+    v = cell[r & 1][(j + 32) % 384];
+  }
+  out[j] = v;
+}
+
+}  // namespace
+
+extern "C" int trellis_latency_probe(int which, int count, void* out, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (which == 0) empty_kernel<<<1, 384, 0, s>>>();
+  else if (which == 1) shuffle_chain<<<1, 384, 0, s>>>(static_cast<float*>(out), count);
+  else exchange_chain<<<1, 384, 0, s>>>(static_cast<float*>(out), count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* trellis_latency_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+"""
+
+
+def trellis_latencies() -> dict:
+    """The latencies of the trellis's floor on this card, CUDA events over
+    the chains of TRELLIS_PROBE_SOURCE: the launch (an empty kernel, timed
+    as the kernel is), a shuffle level and an exchange across the warps
+    (each chain's time less the launch, over its steps), in ms."""
+    TRELLIS_PROBE.parent.mkdir(parents=True, exist_ok=True)
+    TRELLIS_PROBE.write_text(TRELLIS_PROBE_SOURCE)
+    lib = snake_cuda.load_library(TRELLIS_PROBE, "trellis_latency_probe",
+                                  [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                                  "trellis_latency_error_string")
+    out = torch.empty(384, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(which, count=0):
+        err = lib.trellis_latency_probe(which, count, out.data_ptr(), stream)
+        check(err == 0, f"trellis latency probe {which}: "
+                        f"{lib.trellis_latency_error_string(err).decode()}")
+
+    launch_ms = cuda_ms(lambda i=0: launch(0), 200)
+    level_ms = (cuda_ms(lambda i=0: launch(1, TRELLIS_CHAIN), 10) - launch_ms) / TRELLIS_CHAIN
+    exchange_ms = (cuda_ms(lambda i=0: launch(2, TRELLIS_CHAIN), 10) - launch_ms) / TRELLIS_CHAIN
+    return dict(launch_ms=launch_ms, level_ms=level_ms, exchange_ms=exchange_ms)
+
+
+def trellis_bound_ms(steps: int, lat: dict) -> float:
+    """The trellis's floor over `steps` dependent frames: the launch, then
+    a frame's first-index maximum over 360 scores (TRELLIS_LEVELS shuffle
+    levels) and one exchange of the values across the warps, each at this
+    card's latency (`trellis_latencies`); or its bytes (the observations,
+    pointers, band and value) at HBM's rate, where larger."""
+    frame_ms = TRELLIS_LEVELS * lat["level_ms"] + lat["exchange_ms"]
+    n_bytes = steps * viterbi_cuda.BINS * (4 + 2) + 33_120 + 2 * 1_440
+    return max(lat["launch_ms"] + steps * frame_ms, 1e3 * n_bytes / HBM_BYTES_PER_S)
+
+
+def trellis_observations(n: int, seed: int, ties: bool) -> np.ndarray:
+    """[n, 360] log observations as the decode makes them (bins outside
+    [50 Hz, 1 kHz] masked, a softmax, a log); `ties`: probabilities on a
+    grid of quarters and every third row the first, so that scores tie."""
+    rng = np.random.default_rng(seed)
+    probs = (rng.integers(0, 4, (n, 360)) / 4 if ties else rng.random((n, 360)) ** 8)
+    probs = probs.astype(np.float32)
+    if ties:
+        probs[::3] = probs[0]
+    return np.log(np.maximum(crepe_mod.viterbi_observations(probs), 1e-30)).astype(np.float32)
+
+
+def host_ms(fn, iters: int) -> float:
+    """Median host ms of `fn()` after one warm call, the card synchronised
+    after each call."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(walls))
+
+
+def trellis_phase(device="cuda") -> dict:
+    """The trellis kernel against its plain version (on the card and on the
+    CPU) at TRELLIS_FRAMES: the largest |value difference| and the pointer
+    rows that differ, over every case; the times of a push's 50 frames by
+    route, and the floor from this card's latencies."""
+    dev, cpu = torch.device(device), torch.device("cpu")
+    trans = crepe_mod.banded_transition()
+    cases, value_err, value_bins, ptr_rows = 0, 0.0, 0, 0
+    for n in TRELLIS_FRAMES:
+        for ties in (False, True):
+            obs = trellis_observations(n, seed=900 + n + ties, ties=ties)
+            rng = np.random.default_rng(n)
+            starts = {"first": None,
+                      "carried": (obs[0] + viterbi_cuda.INIT
+                                  + rng.standard_normal(360)).astype(np.float32),
+                      "large": (-8000.0 + rng.standard_normal(360) * 0.01).astype(np.float32)}
+            for start, value0 in starts.items():
+                args = {d: (torch.from_numpy(obs).to(d),
+                            None if value0 is None else torch.from_numpy(value0).to(d))
+                        for d in (dev, cpu)}
+                launches = viterbi_cuda.launches_trellis
+                value, ptrs = (a.cpu().numpy() for a in viterbi_cuda.viterbi_trellis(*args[dev],
+                                                                                     trans))
+                check(viterbi_cuda.launches_trellis == launches + 1,
+                      "the trellis on the card ran no kernel launch, or more than one")
+                for where in (dev, cpu):
+                    want_value, want_ptrs = (a.cpu().numpy() for a in
+                                             viterbi_cuda.viterbi_trellis_plain(*args[where],
+                                                                                trans))
+                    check(ptrs.shape == want_ptrs.shape,
+                          f"trellis kernel vs plain: pointers {ptrs.shape}, {want_ptrs.shape}")
+                    # bins whose bits differ (-inf against -inf does not), and by how much
+                    diff = value.view(np.int32) != want_value.view(np.int32)
+                    err = np.nan_to_num(np.abs(value[diff] - want_value[diff]), nan=np.inf)
+                    value_bins += int(diff.sum())
+                    value_err = max(value_err, float(np.max(err, initial=0.0)))
+                    ptr_rows += int((ptrs != want_ptrs).any(axis=1).sum())
+                cases += 1
+    check(value_bins == 0 and ptr_rows == 0,
+          f"trellis kernel vs plain: {value_bins} value bins differ, by up to {value_err}; "
+          f"{ptr_rows} pointer rows differ")
+
+    # a push: 50 frames from the value after 100
+    obs = trellis_observations(100 + TRELLIS_PUSH, seed=950, ties=False)
+    prev, _ = viterbi_cuda.viterbi_trellis_plain(torch.from_numpy(obs[:100]), None, trans)
+    push = obs[100:]
+    push_dev, prev_dev = torch.from_numpy(push).to(dev), prev.to(dev)
+    long_dev = torch.from_numpy(trellis_observations(2000, seed=951, ties=False)).to(dev)
+    kernel_ms = cuda_ms(lambda i=0: viterbi_cuda.viterbi_trellis_cuda(push_dev, prev_dev, trans),
+                        200)
+    kernel_2000_ms = cuda_ms(lambda i=0: viterbi_cuda.viterbi_trellis_cuda(long_dev, None, trans),
+                             20)
+
+    def card_push():  # as StreamingCrepe._advance_card
+        value, ptrs = viterbi_cuda.viterbi_trellis_cuda(torch.from_numpy(push).to(dev), prev_dev,
+                                                        trans)
+        return ptrs.cpu().numpy(), value.cpu().numpy()
+
+    sc = stream_extract.StreamingCrepe(crepe_mod.Crepe("tiny").eval(), device="cpu")
+    sc._obs_log = lambda rows: push
+
+    def numpy_push():
+        sc.head, sc.value, sc.ptrs = 100, prev.numpy(), {}
+        sc._advance(100 + TRELLIS_PUSH)
+
+    lat = trellis_latencies()
+    return dict(
+        cases=cases, value_err=value_err, value_bins=value_bins, ptr_rows=ptr_rows, lat=lat,
+        kernel_ms=kernel_ms, kernel_2000_ms=kernel_2000_ms,
+        bound_ms=trellis_bound_ms(TRELLIS_PUSH, lat), bound_2000_ms=trellis_bound_ms(1999, lat),
+        card_push_ms=host_ms(card_push, 100), numpy_push_ms=host_ms(numpy_push, 20),
+        plain_card_ms=host_ms(lambda: viterbi_cuda.viterbi_trellis_plain(push_dev, prev_dev,
+                                                                         trans), 20),
+        plain_cpu_ms=host_ms(lambda: viterbi_cuda.viterbi_trellis_plain(
+            torch.from_numpy(push), prev, trans), 10))
+
+
+def report_trellis(tr: dict, smi: str) -> None:
+    lat = tr["lat"]
+    print(f"[trellis] kernel against its plain version (card and CPU) in {tr['cases']} cases: "
+          f"{', '.join(map(str, TRELLIS_FRAMES))} frames, masked bins with and without planted "
+          f"ties, from the first frame, a carried value and a large one: {tr['value_bins']} "
+          f"value bins differ in their bits (largest |difference| {tr['value_err']}), "
+          f"{tr['ptr_rows']} pointer rows differ; one launch a call | {smi}", flush=True)
+    print(f"[trellis] latencies (one block of 12 warps): launch {1e3 * lat['launch_ms']:.2f} us, "
+          f"shuffle level {1e6 * lat['level_ms']:.1f} ns, exchange across the warps "
+          f"{1e6 * lat['exchange_ms']:.1f} ns; floor a frame {TRELLIS_LEVELS} levels + 1 "
+          f"exchange = {1e6 * (TRELLIS_LEVELS * lat['level_ms'] + lat['exchange_ms']):.1f} ns "
+          f"| {smi}", flush=True)
+    print(f"[trellis] a push's {TRELLIS_PUSH} frames: kernel {1e3 * tr['kernel_ms']:.1f} us "
+          f"(CUDA events, {1e3 * tr['kernel_ms'] / TRELLIS_PUSH:.3f} us a frame; bound "
+          f"{1e3 * tr['bound_ms']:.1f} us, {100 * tr['bound_ms'] / tr['kernel_ms']:.0f}% "
+          f"reached); the stream's card path (upload, launch, pointers and value back) "
+          f"{tr['card_push_ms']:.3f} ms; "
+          f"the CPU stream's numpy trellis {tr['numpy_push_ms']:.2f} ms; plain version on the "
+          f"card {tr['plain_card_ms']:.2f} ms, on the CPU {tr['plain_cpu_ms']:.2f} ms; kernel "
+          f"at 2000 frames {tr['kernel_2000_ms']:.3f} ms "
+          f"({1e3 * tr['kernel_2000_ms'] / 2000:.3f} us a frame; bound "
+          f"{tr['bound_2000_ms']:.3f} ms, {100 * tr['bound_2000_ms'] / tr['kernel_2000_ms']:.0f}% "
+          f"reached) | {smi}", flush=True)
+
+
 @contextlib.contextmanager
 def stream_probes(device):
     """Wrap the streaming stages from outside and time each call (the card
@@ -2576,6 +2824,7 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
             torch.cuda.reset_peak_memory_stats()
         reset_counts()
         replays0 = stream_mod.graph_replays
+        trellis0, frames0 = viterbi_cuda.launches_trellis, stream_extract.counts()
         with stream_probes(device) as rec:
             svc, outs, walls = stream(len(blocks))
             blocks_rec = {k: list(v) for k, v in rec.items()}  # the blocks, not the flush
@@ -2585,6 +2834,14 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
             sync(device)
             flush_s = time.perf_counter() - t0
         counts = read_counts()
+        trellis = viterbi_cuda.launches_trellis - trellis0
+        frames = {k: v - frames0[k] for k, v in stream_extract.counts().items()}
+        on_card = torch.device(device).type == "cuda"
+        check(trellis == (len(blocks) + 1 if on_card else 0)
+              and frames["crepe_card_frames"] == (frames["crepe_frames"] if on_card else 0),
+              f"stream audio: {trellis} trellis launches for {len(blocks)} blocks and the "
+              f"flush, {frames['crepe_card_frames']} of {frames['crepe_frames']} CREPE frames "
+              f"on the card ({device}); expected a launch a call and every frame on the card")
         peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
         audio = np.concatenate(outs)
         rms = float(np.sqrt(np.mean(np.square(audio))))
@@ -2618,13 +2875,13 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
             sc.push(b)
         sc.finish()
         path = sc.decode(0, sc.head + 1)
-        frames = crepe_mod.frame_audio(voice, stream_extract.HOP)
+        crepe_frames = crepe_mod.frame_audio(voice, stream_extract.HOP)
         offline = {bs: crepe_mod.viterbi_decode(crepe_mod.viterbi_observations(
-            crepe_mod.crepe_probabilities(models[2], frames, batch_size=bs)), device=device)
-            for bs in (stream_extract._CREPE_BATCH, 512)}
-        check(len(path) == len(frames) and np.array_equal(path, offline[64]),
+            crepe_mod.crepe_probabilities(models[2], crepe_frames, batch_size=bs)),
+            device=device) for bs in (stream_extract._CREPE_BATCH, 512)}
+        check(len(path) == len(crepe_frames) and np.array_equal(path, offline[64]),
               f"the streaming CREPE's flush path differs from the offline path at "
-              f"{np.flatnonzero(path != offline[64])[:10]} of {len(frames)} frames")
+              f"{np.flatnonzero(path != offline[64])[:10]} of {len(crepe_frames)} frames")
         path_diff_512 = int(np.sum(path != offline[512]))
 
         # the first block's features on the card against the CPU
@@ -2645,7 +2902,8 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
         pit_equal = float(np.mean(got[2] == ref[2]))
         return dict(walls=walls, flush_s=flush_s, rec=blocks_rec, counts=counts, pushes=pushes,
                     prof_snakes=prof_snakes, peak=peak, rms=rms, errs=errs, pit_equal=pit_equal,
-                    crepe_frames=len(frames), path_diff_512=path_diff_512,
+                    crepe_frames=len(crepe_frames), path_diff_512=path_diff_512,
+                    trellis_launches=trellis, crepe_card_frames=frames["crepe_card_frames"],
                     block_s=STREAM_AUDIO_BLOCK / 16000, seconds=seconds,
                     phase_s=time.perf_counter() - phase_t0)
     finally:
@@ -2816,7 +3074,7 @@ def report_stream_audio(sa: dict, smi: str) -> None:
     rec = sa["rec"]
     share = {k: 1e3 * sum(rec[k]) / len(walls) for k in ("whisper", "hubert", "synthesis")}
     share["crepe_probs"] = 1e3 * sum(rec["crepe_probs"]) / len(walls)
-    share["crepe_trellis_host"] = 1e3 * (sum(rec["crepe"]) - sum(rec["crepe_probs"])) / len(walls)
+    share["crepe_trellis"] = 1e3 * (sum(rec["crepe"]) - sum(rec["crepe_probs"])) / len(walls)
     share["other"] = float(np.mean(walls)) - sum(share.values())
     print(f"[stream-audio] {sa['seconds']:.1f} s voice in {len(walls)} blocks of "
           f"{sa['block_s']:.2f} s (lag {STREAM_LAG} frames) at the published widths: wall per "
@@ -2825,7 +3083,9 @@ def report_stream_audio(sa: dict, smi: str) -> None:
           f"the wall = {1e3 * sa['block_s'] + np.median(walls):.2f} ms at the median; flush "
           f"{1e3 * sa['flush_s']:.2f} ms; mean ms a block by stage "
           + json.dumps({k: round(v, 2) for k, v in share.items()})
-          + f"; {sa['pushes']} synthesis pushes, snake launches {sa['counts']['direct']} "
+          + f"; {sa['pushes']} synthesis pushes, trellis launches {sa['trellis_launches']} "
+          f"({sa['crepe_card_frames']} CREPE frames on the card), snake launches "
+          f"{sa['counts']['direct']} "
           f"(one profiled block: {sa['prof_snakes']} snake kernels on the device); "
           f"peak device memory {sa['peak'] / 2**30:.2f} GiB | {smi}", flush=True)
     print(f"[stream-audio] the streaming CREPE's flush path equals the offline decode on all "
@@ -3947,13 +4207,16 @@ def main() -> int:
     compare = all(p.exists() for p in (*PREV_SOURCES, PREV_DIR / "snake_alias.cuh"))
     libs = snake_cuda.build(*sources, *(PREV_SOURCES if compare else ()))
     for load in (snake_cuda._library, snake_cuda._library_bwd, snake_cuda._library_strips,
-                 snake_cuda._library_mma, amp_cuda._library):
+                 snake_cuda._library_mma, amp_cuda._library, viterbi_cuda._library):
         load()
     prev = load_prev()
-    check(len(sources) == 5, f"{len(sources)} kernel sources, expected 5")
+    check(len(sources) == 6, f"{len(sources)} kernel sources, expected 6")
     print(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s"
           + (f" (with the earlier mma and amp_iter from {PREV_DIR.name}/)" if prev else
              "; no build/prev_kernels/: no comparison with earlier kernels"), flush=True)
+
+    trellis = trellis_phase()
+    report_trellis(trellis, smi)
 
     hp = config_from_dict(BASE_MODEL_CONFIG)
     stages = stage_shapes(hp, 1, CHUNK_FRAMES)
@@ -4347,6 +4610,21 @@ def main() -> int:
                                  "audio_in": audio_in[variant]}
                                 | {k: v[variant] for k, v in flow.items()},
         })
+    kernels.append({
+        "name": "viterbi_trellis", "route": "cuda", "source": SOURCE_TRELLIS,
+        "replaces": REPLACES_TRELLIS, "launches": sa["trellis_launches"],
+        "max_abs_err": trellis["value_err"], "value_bins_differ": trellis["value_bins"],
+        "pointer_rows_differ": trellis["ptr_rows"],
+        "ms": trellis["kernel_ms"], "plain_ms": trellis["plain_card_ms"],
+        "bound_ms": trellis["bound_ms"],
+        "bound_by": "latency: the launch, then per frame a 9-level first-index maximum and "
+                    "one exchange across the warps, at this card's measured latencies",
+        "library_ms": None,
+        "numpy_ms": trellis["numpy_push_ms"], "card_path_ms": trellis["card_push_ms"],
+        "ms_2000_frames": trellis["kernel_2000_ms"],
+        "per": f"one push's {TRELLIS_PUSH} frames from a carried value, float32",
+        "launches_by_path": {"stream_audio": sa["trellis_launches"]},
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

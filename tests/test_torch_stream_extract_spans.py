@@ -125,7 +125,7 @@ def test_counters_add_up(parts):
     """Per push: a whisper and a HuBERT window each; CREPE's frames are
     those the stream completed (49 ... head + 1 over the stream, the tail at
     the flush), its rows the frames of each call rounded up to the static
-    batch of 64."""
+    batch of 64; none of them on the card."""
     audio = _voice(2.0, seed=5)
     svc = _stream(parts)
     ex = svc.extractor
@@ -143,6 +143,7 @@ def test_counters_add_up(parts):
         assert d["whisper_windows"] == d["hubert_windows"] == int(pushed)
         assert d["crepe_frames"] == frames > 0
         assert d["crepe_rows"] == -(-frames // 64) * 64
+        assert d["crepe_card_frames"] == 0
     assert ex.crepe.head + 1 == len(audio) // se.HOP + 1
 
 

@@ -3,10 +3,13 @@
 
   * CREPE: a 320-hop frame is computed once its whole 1024-sample support
     has arrived, so every probability row equals the offline one; the
-    Viterbi trellis advances online (float32 numpy, the offline trellis's
-    adds, maxima and first-index argmaxes), a frame is emitted by
-    backtracing from the newest head `lag` frames ahead, and the flush
-    backtraces the whole trellis: the offline path.
+    Viterbi trellis advances online (the offline trellis's float32 adds,
+    maxima and first-index argmaxes), a frame is emitted by backtracing
+    from the newest head `lag` frames ahead, and the flush backtraces the
+    whole trellis: the offline path. With the model on the card the new
+    frames go through the trellis kernel (ops/viterbi_cuda.py) in one
+    launch a push, the offline decode's kernel; on the CPU through a numpy
+    loop, its plain version's operations.
   * HuBERT: each block runs on [carried context | block] (2 s by default,
     one shape); only the new block's frames are emitted.
   * Whisper: the whole sliding 15 s window is recomputed each block and the
@@ -18,17 +21,20 @@
 All three emit on the shared 320-hop grid behind one `lag_frames` pointer
 (default 4 frames, 80 ms): CREPE's right support, the mean-5 pitch filter's
 centred window and whisper's and HuBERT's edge frames lie inside the lag.
-The models run on their device (the card unless the caller asks for the
-CPU); the trellis and the bookkeeping run on the host.
+The models and the trellis run on their device (the card unless the
+caller asks for the CPU); the observations, the backtrace and the
+bookkeeping on the host.
 
 `StreamingExtractor.push` opens the span `svc.extract` (utils/profiling.py)
 with one child a stage, each closed after the stage's read-back so that
 its device work lies inside it: `svc.extract.whisper`, `.hubert`, `.crepe`
-(holding `.crepe.trellis`, the host's trellis) and `.emit`; `flush` opens
-`.crepe` and `.emit`. `whisper_windows` and `hubert_windows` count the
-windows run, `crepe_frames` the CREPE frames the stream needed and
-`crepe_rows` the rows launched for them, the static batch's padding
-included (`counts`, `add_counts`).
+(holding `.crepe.trellis`: the trellis, and on the card its upload and
+read-back) and `.emit`; `flush` opens `.crepe` and `.emit`.
+`whisper_windows` and `hubert_windows` count the windows run,
+`crepe_frames` the CREPE frames the stream needed, `crepe_card_frames`
+those of them whose trellis ran on the card and `crepe_rows` the rows
+launched for them, the static batch's padding included (`counts`,
+`add_counts`).
 """
 
 from __future__ import annotations
@@ -42,12 +48,14 @@ from ..models.crepe import (
     PITCH_BINS,
     Crepe,
     _log_transition,
+    banded_transition,
     bins_to_cents,
     cents_to_frequency,
     crepe_probabilities,
     frequency_to_bins,
     nan_mean_filter,
 )
+from ..ops import viterbi_cuda
 from ..utils.profiling import span
 from .stream import model_on
 
@@ -59,8 +67,10 @@ VEC_DIM = 256                  # HuBERT-soft units
 whisper_windows = 0  # sliding whisper windows run
 hubert_windows = 0   # carried-context HuBERT windows run
 crepe_frames = 0     # CREPE frames the streams needed
+crepe_card_frames = 0  # those of them whose trellis step ran on the card
 crepe_rows = 0       # CREPE rows launched for them (whole static batches)
-COUNTERS = ("whisper_windows", "hubert_windows", "crepe_frames", "crepe_rows")
+COUNTERS = ("whisper_windows", "hubert_windows", "crepe_frames", "crepe_card_frames",
+            "crepe_rows")
 
 
 def counts() -> dict:
@@ -149,13 +159,15 @@ class StreamingCrepe:
 
     Frame i needs samples [i*320 - 512, i*320 + 512) (the offline framing's
     WINDOW/2 padding); it is computed once they exist, in batches of
-    _CREPE_BATCH through `crepe_probabilities`. `decode` backtraces from the
+    _CREPE_BATCH through `crepe_probabilities`. The trellis follows the
+    model's device: on the card one kernel launch a push, carrying its
+    value there; on the CPU a numpy loop. `decode` backtraces from the
     newest head; at the flush the head is the last frame and the path is the
     offline `viterbi_decode` path."""
 
     def __init__(self, model: Crepe, fmin: float = 50.0, fmax: float = 1000.0,
                  device: str | torch.device | None = "cuda"):
-        model_on(model, device)
+        self.dev = model_on(model, device)
         self.model = model
         self.buf = np.zeros(0, np.float32)   # unconsumed samples and their context
         self.buf_start = 0                   # global sample index of buf[0]
@@ -168,6 +180,8 @@ class StreamingCrepe:
         self.head = -1                       # last frame through the trellis
         self.value = None                    # [360] trellis value at head
         self.ptrs: dict[int, np.ndarray] = {}  # frame t -> backpointers [360]
+        self.card = self.dev.type == "cuda"  # the trellis on the card
+        self._value_card = None              # [360] the value at head, there
 
     def _frame_rows(self, frames: list[int]) -> np.ndarray:
         """[len(frames), 1024] windows of the global frames; samples out of
@@ -202,14 +216,29 @@ class StreamingCrepe:
         crepe_frames += len(new)
         crepe_rows += -(-len(new) // _CREPE_BATCH) * _CREPE_BATCH
         with span("svc.extract.crepe.trellis"):
-            for t, o in zip(new, obs):
-                if t == 0:
-                    self.value = o + np.float32(np.log(1.0 / PITCH_BINS))
-                else:
-                    scores = self.value[:, None] + self.log_trans  # [from, to]
-                    self.ptrs[t] = scores.argmax(axis=0)
-                    self.value = scores.max(axis=0) + o
+            if self.card:
+                self._advance_card(new, obs)
+            else:
+                for t, o in zip(new, obs):
+                    if t == 0:
+                        self.value = o + np.float32(np.log(1.0 / PITCH_BINS))
+                    else:
+                        scores = self.value[:, None] + self.log_trans  # [from, to]
+                        self.ptrs[t] = scores.argmax(axis=0)
+                        self.value = scores.max(axis=0) + o
         self.head = upto_frame
+
+    def _advance_card(self, new: list[int], obs: np.ndarray):
+        """The frames `new` through one launch of the trellis kernel: obs up,
+        the value carried on the card, the pointers (int16) and the value
+        back."""
+        global crepe_card_frames
+        steps = new if self._value_card is not None else new[1:]  # frame 0 starts it
+        self._value_card, ptrs = viterbi_cuda.viterbi_trellis_cuda(
+            torch.from_numpy(obs).to(self.dev), self._value_card, banded_transition())
+        self.ptrs.update(zip(steps, ptrs.cpu().numpy()))
+        self.value = self._value_card.cpu().numpy()
+        crepe_card_frames += len(new)
 
     def push(self, samples: np.ndarray):
         samples = np.asarray(samples, np.float32)

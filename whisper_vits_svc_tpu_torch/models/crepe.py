@@ -11,8 +11,9 @@ core.py:539-700, decode.py:55-80, convert.py:12-57, filter.py:10-134).
     batches of 512 frames;
   * the Viterbi decode over the frequency-masked, softmaxed bin
     probabilities with the reference's triangular transition matrix: the
-    trellis runs on the model's device, one 360 x 360 max and argmax per
-    frame; the backtrace on the host;
+    trellis runs on the model's device, on the card as one launch of the
+    trellis kernel (ops/viterbi_cuda.py), on the CPU as its plain version,
+    one 360 x 360 max and argmax per frame; the backtrace on the host;
   * cents -> Hz with the optional triangular dither, and NaN-aware mean and
     median filters, in numpy.
 
@@ -22,11 +23,14 @@ the JAX package's order, so the same seed gives the same F0.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import viterbi_cuda
 from ..utils.device import resolve_device
 from .convert import torch_load_weights
 
@@ -141,22 +145,22 @@ def _log_transition() -> np.ndarray:
     return np.log(_transition_matrix() + np.float32(1e-30))
 
 
+@lru_cache(maxsize=None)
+def banded_transition() -> viterbi_cuda.BandedTransition:
+    """`_log_transition()` in the trellis kernel's banded form."""
+    return viterbi_cuda.banded(_log_transition())
+
+
 def viterbi_trellis(log_prob: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[T, S] log observation probabilities on any device -> (the last
-    step's values [S], backpointers [T - 1, S]), float32 on that device.
+    step's values [S] float32, backpointers [T - 1, S] int16) on that device:
+    one kernel launch on the card, the plain loop on the CPU
+    (`viterbi_cuda.viterbi_trellis`), bitwise the same.
 
     One step: scores[from, to] = value[from] + log_trans[from, to]; the
-    pointer is the first argmax over `from` (torch.argmax's tie rule, on
-    the card as on the CPU), the value the max plus the observation."""
-    dev = log_prob.device
-    log_trans = torch.from_numpy(_log_transition()).to(dev)
-    value = log_prob[0] + np.float32(np.log(np.float32(1.0 / PITCH_BINS)))
-    ptrs = torch.empty((max(len(log_prob) - 1, 0), PITCH_BINS), dtype=torch.int64, device=dev)
-    for t in range(1, len(log_prob)):
-        scores = value[:, None] + log_trans
-        ptrs[t - 1] = scores.argmax(dim=0)
-        value = scores.amax(dim=0) + log_prob[t]
-    return value, ptrs
+    pointer is the first argmax over `from` (torch.argmax's tie rule), the
+    value the max plus the observation."""
+    return viterbi_cuda.viterbi_trellis(log_prob, None, banded_transition())
 
 
 def viterbi_decode(probs: np.ndarray, device: str | torch.device | None = "cuda") -> np.ndarray:
