@@ -83,7 +83,7 @@ Phases (any failure exits non-zero without the final line):
 8. training card vs CPU: the seeded initial weights, a 2 x 100-frame batch,
    every stochastic node frozen, the CPU taking the card's ReLU/abs
    branches on 8 threads, pinned (the reference's float32 sums move with
-   the thread count; train_check_probe.py); loss terms within rtol 1e-4; G's
+   the thread count; PERF.md); loss terms within rtol 1e-4; G's
    backward of one fixed audio
    gradient within relative L2 1e-4 per parameter; each audio loss term's
    gradient with respect to the audio, and every parameter gradient of the
@@ -285,7 +285,7 @@ from whisper_vits_svc_tpu_torch.models import whisper as whisper_mod
 from whisper_vits_svc_tpu_torch.models.synthesizer import slice_segments
 from whisper_vits_svc_tpu_torch.nn.nsf import source_hn_nsf
 from whisper_vits_svc_tpu_torch.nn.snake import snake_alias_fused_cm
-from whisper_vits_svc_tpu_torch.ops import amp_cuda, snake_cuda, viterbi_cuda
+from whisper_vits_svc_tpu_torch.ops import amp_cuda, cuda_build, snake_cuda, viterbi_cuda
 from whisper_vits_svc_tpu_torch.ops import stft as stft_mod
 from whisper_vits_svc_tpu_torch.parallel import ddp as tddp
 from whisper_vits_svc_tpu_torch.parallel import sharding
@@ -328,7 +328,7 @@ CARD_VS_CPU_ATOL = 5e-5
 # training step card vs CPU, every ReLU, leaky ReLU and abs on the CPU taking
 # the branch it took on the card (an input within f32 rounding of zero can
 # take the other one, and the gradient there then changes by (1 - slope)
-# of its size: kink_flips.py). Loss terms within 1e-4. G's own backward (its
+# of its size; PERF.md). Loss terms within 1e-4. G's own backward (its
 # VJP of one fixed d loss / d audio, through the snake kernels) within 1e-4
 # relative L2 per parameter. Each audio loss term's gradient with respect to
 # the audio, and every parameter gradient of the step, within 1e-3: the
@@ -367,8 +367,8 @@ TIMED_STEPS = 4
 CHECK_BATCH, CHECK_FRAMES, CHECK_SLICE_IDS = 2, 100, (0, 61)
 # the CPU reference's thread count, pinned: oneDNN and MKL split their float32
 # sums by thread, and the MR-STFT log loss's audio gradient carries that
-# rounding into the last stage's gradients. train_check_probe.py on an H100
-# host: worst gradient 4.03e-3 / 1.08e-3 / 0.93e-3 / 0.94e-3 / 0.52e-3 on
+# rounding into the last stage's gradients. Measured on an H100 host
+# (PERF.md): worst gradient 4.03e-3 / 1.08e-3 / 0.93e-3 / 0.94e-3 / 0.52e-3 on
 # 1 / 2 / 4 / 8 / 16 threads, 2.07e-3 against a float64 CPU (the card's own
 # float32 error in that ill-conditioned loss). 8: the card machine's cores,
 # the thread count that earlier passing runs of this check had by default
@@ -561,10 +561,10 @@ def load_prev() -> dict | None:
         return None
     ptr, num = ctypes.c_void_p, ctypes.c_int
     taps = ctypes.POINTER(ctypes.c_float)
-    mma_lib = snake_cuda.load_library(PREV_SOURCES[0], "snake_alias_mma_forward",
+    mma_lib = cuda_build.load_library(PREV_SOURCES[0], "snake_alias_mma_forward",
                                       [ptr] * 5 + [taps] + [num] * 4 + [ptr],
                                       "snake_alias_mma_error_string")
-    amp_lib = snake_cuda.load_library(PREV_SOURCES[1], "amp_iter_forward",
+    amp_lib = cuda_build.load_library(PREV_SOURCES[1], "amp_iter_forward",
                                       [ptr] * 10 + [taps] + [num] * 7 + [ptr],
                                       "amp_iter_error_string")
     fir = torch.from_numpy(prev_fir_matrices()).cuda()
@@ -577,9 +577,9 @@ def load_prev() -> dict | None:
         *params, k, d = args
         b, c, t = x.shape
         out = torch.empty_like(x)
-        params = [snake_cuda._param(p, x.device) for p in params]
+        params = [cuda_build.param(p, x.device) for p in params]
         err = amp_lib.amp_iter_forward(
-            x.data_ptr(), out.data_ptr(), *(p.data_ptr() for p in params), snake_cuda._taps(),
+            x.data_ptr(), out.data_ptr(), *(p.data_ptr() for p in params), snake_cuda.fir_taps(),
             int(x.dtype == torch.bfloat16), b, c, t, k, d, prev_amp_tile(c, k, d),
             torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"earlier amp_iter kernel launch failed: {err}")
@@ -2583,7 +2583,7 @@ def trellis_latencies() -> dict:
     (each chain's time less the launch, over its steps), in ms."""
     TRELLIS_PROBE.parent.mkdir(parents=True, exist_ok=True)
     TRELLIS_PROBE.write_text(TRELLIS_PROBE_SOURCE)
-    lib = snake_cuda.load_library(TRELLIS_PROBE, "trellis_latency_probe",
+    lib = cuda_build.load_library(TRELLIS_PROBE, "trellis_latency_probe",
                                   [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
                                   "trellis_latency_error_string")
     out = torch.empty(384, device="cuda")
@@ -2690,24 +2690,18 @@ def trellis_phase(device="cuda") -> dict:
     kernel_2000_ms = cuda_ms(lambda i=0: viterbi_cuda.viterbi_trellis_cuda(long_dev, None, trans),
                              20)
 
-    def card_push():  # as StreamingCrepe._advance_card
-        value, ptrs = viterbi_cuda.viterbi_trellis_cuda(torch.from_numpy(push).to(dev), prev_dev,
-                                                        trans)
-        return ptrs.cpu().numpy(), value.cpu().numpy()
+    sc = stream_extract.StreamingCrepe(crepe_mod.Crepe("tiny").eval().to(dev), device=dev)
 
-    sc = stream_extract.StreamingCrepe(crepe_mod.Crepe("tiny").eval(), device="cpu")
-    sc._obs_log = lambda rows: push
-
-    def numpy_push():
-        sc.head, sc.value, sc.ptrs = 100, prev.numpy(), {}
-        sc._advance(100 + TRELLIS_PUSH)
+    def card_push():  # StreamingCrepe._step: obs up, the launch, the pointers and argmax back
+        sc.head, sc.value, sc.ptrs = 100, prev_dev, {}
+        sc._step(push)
 
     lat = trellis_latencies()
     return dict(
         cases=cases, value_err=value_err, value_bins=value_bins, ptr_rows=ptr_rows, lat=lat,
         kernel_ms=kernel_ms, kernel_2000_ms=kernel_2000_ms,
         bound_ms=trellis_bound_ms(TRELLIS_PUSH, lat), bound_2000_ms=trellis_bound_ms(1999, lat),
-        card_push_ms=host_ms(card_push, 100), numpy_push_ms=host_ms(numpy_push, 20),
+        card_push_ms=host_ms(card_push, 100),
         plain_card_ms=host_ms(lambda: viterbi_cuda.viterbi_trellis_plain(push_dev, prev_dev,
                                                                          trans), 20),
         plain_cpu_ms=host_ms(lambda: viterbi_cuda.viterbi_trellis_plain(
@@ -2730,8 +2724,7 @@ def report_trellis(tr: dict, smi: str) -> None:
           f"(CUDA events, {1e3 * tr['kernel_ms'] / TRELLIS_PUSH:.3f} us a frame; bound "
           f"{1e3 * tr['bound_ms']:.1f} us, {100 * tr['bound_ms'] / tr['kernel_ms']:.0f}% "
           f"reached); the stream's card path (upload, launch, pointers and value back) "
-          f"{tr['card_push_ms']:.3f} ms; "
-          f"the CPU stream's numpy trellis {tr['numpy_push_ms']:.2f} ms; plain version on the "
+          f"{tr['card_push_ms']:.3f} ms; plain version on the "
           f"card {tr['plain_card_ms']:.2f} ms, on the CPU {tr['plain_cpu_ms']:.2f} ms; kernel "
           f"at 2000 frames {tr['kernel_2000_ms']:.3f} ms "
           f"({1e3 * tr['kernel_2000_ms'] / 2000:.3f} us a frame; bound "
@@ -2748,7 +2741,7 @@ def stream_probes(device):
     counts). Yields the record of totals and per-call lists."""
     targets = [(stream_extract.StreamingWhisper, "push", "whisper"),
                (stream_extract.StreamingHubert, "push", "hubert"),
-               (stream_extract.StreamingCrepe, "_obs_log", "crepe_probs"),
+               (stream_extract, "crepe_probabilities", "crepe_probs"),
                (stream_extract.StreamingCrepe, "_advance", "crepe"),
                (StreamingSvc, "push", "synthesis")]
     orig = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
@@ -2837,11 +2830,10 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
         trellis = viterbi_cuda.launches_trellis - trellis0
         frames = {k: v - frames0[k] for k, v in stream_extract.counts().items()}
         on_card = torch.device(device).type == "cuda"
-        check(trellis == (len(blocks) + 1 if on_card else 0)
-              and frames["crepe_card_frames"] == (frames["crepe_frames"] if on_card else 0),
+        check(trellis == (len(blocks) + 1 if on_card else 0),
               f"stream audio: {trellis} trellis launches for {len(blocks)} blocks and the "
-              f"flush, {frames['crepe_card_frames']} of {frames['crepe_frames']} CREPE frames "
-              f"on the card ({device}); expected a launch a call and every frame on the card")
+              f"flush ({frames['crepe_frames']} CREPE frames) on {device}; expected a launch "
+              f"a call on the card")
         peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
         audio = np.concatenate(outs)
         rms = float(np.sqrt(np.mean(np.square(audio))))
@@ -2903,7 +2895,7 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
         return dict(walls=walls, flush_s=flush_s, rec=blocks_rec, counts=counts, pushes=pushes,
                     prof_snakes=prof_snakes, peak=peak, rms=rms, errs=errs, pit_equal=pit_equal,
                     crepe_frames=len(crepe_frames), path_diff_512=path_diff_512,
-                    trellis_launches=trellis, crepe_card_frames=frames["crepe_card_frames"],
+                    trellis_launches=trellis, stream_crepe_frames=frames["crepe_frames"],
                     block_s=STREAM_AUDIO_BLOCK / 16000, seconds=seconds,
                     phase_s=time.perf_counter() - phase_t0)
     finally:
@@ -3084,7 +3076,7 @@ def report_stream_audio(sa: dict, smi: str) -> None:
           f"{1e3 * sa['flush_s']:.2f} ms; mean ms a block by stage "
           + json.dumps({k: round(v, 2) for k, v in share.items()})
           + f"; {sa['pushes']} synthesis pushes, trellis launches {sa['trellis_launches']} "
-          f"({sa['crepe_card_frames']} CREPE frames on the card), snake launches "
+          f"(for {sa['stream_crepe_frames']} CREPE frames), snake launches "
           f"{sa['counts']['direct']} "
           f"(one profiled block: {sa['prof_snakes']} snake kernels on the device); "
           f"peak device memory {sa['peak'] / 2**30:.2f} GiB | {smi}", flush=True)
@@ -4203,9 +4195,9 @@ def main() -> int:
 
     resolve_device("cuda")  # TF32 off: the plain versions' convolutions run in float32
     t0 = time.perf_counter()
-    sources = snake_cuda.all_sources()
+    sources = cuda_build.all_sources()
     compare = all(p.exists() for p in (*PREV_SOURCES, PREV_DIR / "snake_alias.cuh"))
-    libs = snake_cuda.build(*sources, *(PREV_SOURCES if compare else ()))
+    libs = cuda_build.build(*sources, *(PREV_SOURCES if compare else ()))
     for load in (snake_cuda._library, snake_cuda._library_bwd, snake_cuda._library_strips,
                  snake_cuda._library_mma, amp_cuda._library, viterbi_cuda._library):
         load()
@@ -4620,7 +4612,7 @@ def main() -> int:
         "bound_by": "latency: the launch, then per frame a 9-level first-index maximum and "
                     "one exchange across the warps, at this card's measured latencies",
         "library_ms": None,
-        "numpy_ms": trellis["numpy_push_ms"], "card_path_ms": trellis["card_push_ms"],
+        "card_path_ms": trellis["card_push_ms"],
         "ms_2000_frames": trellis["kernel_2000_ms"],
         "per": f"one push's {TRELLIS_PUSH} frames from a carried value, float32",
         "launches_by_path": {"stream_audio": sa["trellis_launches"]},

@@ -17,6 +17,7 @@ from whisper_vits_svc_tpu_torch.infer.stream import StreamingSvc
 from whisper_vits_svc_tpu_torch.models.crepe import Crepe
 from whisper_vits_svc_tpu_torch.models.hubert import HubertSoft
 from whisper_vits_svc_tpu_torch.models.whisper import WhisperEncoder
+from whisper_vits_svc_tpu_torch.ops import viterbi_cuda
 from whisper_vits_svc_tpu_torch.utils.config import config_from_dict
 from whisper_vits_svc_tpu_torch.utils.profiling import spans
 
@@ -125,11 +126,11 @@ def test_counters_add_up(parts):
     """Per push: a whisper and a HuBERT window each; CREPE's frames are
     those the stream completed (49 ... head + 1 over the stream, the tail at
     the flush), its rows the frames of each call rounded up to the static
-    batch of 64; none of them on the card."""
+    batch of 64; no trellis launch on the card."""
     audio = _voice(2.0, seed=5)
     svc = _stream(parts)
     ex = svc.extractor
-    calls = []
+    calls, launches = [], viterbi_cuda.counts()
     for s in range(0, len(audio), BLOCK):
         before, head = se.counts(), ex.crepe.head
         svc.push_audio(audio[s : s + BLOCK])
@@ -138,13 +139,13 @@ def test_counters_add_up(parts):
     svc.flush_audio()
     calls.append((before, se.counts(), ex.crepe.head - head))
     for i, (a, b, frames) in enumerate(calls):
-        d = {k: b[k] - a[k] for k in se.COUNTERS}
+        d = {k: b[k] - a[k] for k in b}
         pushed = i < len(calls) - 1
         assert d["whisper_windows"] == d["hubert_windows"] == int(pushed)
         assert d["crepe_frames"] == frames > 0
         assert d["crepe_rows"] == -(-frames // 64) * 64
-        assert d["crepe_card_frames"] == 0
     assert ex.crepe.head + 1 == len(audio) // se.HOP + 1
+    assert viterbi_cuda.counts() == launches
 
 
 def test_add_counts_adds_to_counts():

@@ -25,6 +25,7 @@ from whisper_vits_svc_tpu_torch.infer import pipeline
 from whisper_vits_svc_tpu_torch.infer import stream
 from whisper_vits_svc_tpu_torch.infer.stream import StreamingSvc, graph_key, tensor_dicts
 from whisper_vits_svc_tpu_torch.ops import amp_cuda, snake_cuda
+from whisper_vits_svc_tpu_torch.utils import counters as registry
 from whisper_vits_svc_tpu_torch.utils.config import BASE_MODEL_CONFIG, config_from_dict
 
 BLOCK, CONTEXT = 10, 5
@@ -151,11 +152,18 @@ def test_graph_key_follows_parameter_storage():
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_kernel_counts_add_by_name(module, monkeypatch):
     """A kernel module's `add_counts` adds to the counters that `counts`
-    reads, by name, as a replay and a capture's roll-back use them."""
+    reads, by name; the registry's `counts`, `since` and `add_counts` read,
+    diff and add them, as a replay and a capture's roll-back use them."""
     for name in module.counts():
         monkeypatch.setattr(module, name, 5)
     module.add_counts(dict.fromkeys(module.counts(), 2))
     assert module.counts() == dict.fromkeys(module.counts(), 7)
+    before = registry.counts()
+    assert before[module.__name__] == module.counts()
+    registry.add_counts({module.__name__: {"launches": 3}})
+    assert registry.since(before) == {module.__name__: {"launches": 3}}
+    registry.add_counts(registry.since(before), sign=-1)
+    assert registry.counts() == before and registry.since(before) == {}
     module.add_counts({name: -n for name, n in module.counts().items()})
     assert set(module.counts().values()) == {0}
 
@@ -169,7 +177,7 @@ def stand_in(monkeypatch):
     op, and a replay reruns it into the captured output without touching
     the launch counters, as a real replay skips them. Each forward counts
     LAUNCHES snake launches, as the card's forward counts its B1's."""
-    monkeypatch.setattr(stream, "GRAPH_DEVICES", ("cuda", "cpu"))
+    monkeypatch.setattr(stream, "_graphed", lambda dev: True)
     monkeypatch.setattr(snake_cuda, "launches", 0)
 
     def warm(fn, dev):
@@ -214,8 +222,7 @@ def test_stand_in_graph_equals_eager(stand_in, noise_scale):
     assert (c1[0] - c0[0], c1[1] - c0[1], c1[2] - c0[2]) == (1, 6, 0)
     assert snake_cuda.launches == LAUNCHES * (stream.WARM_FORWARDS + 6)
     (g,) = stream._graphs[model].values()
-    assert g.launches == [dict.fromkeys(snake_cuda.COUNTERS, 0) | {"launches": LAUNCHES},
-                          {"launches": 0}]
+    assert g.launches == {snake_cuda.__name__: {"launches": LAUNCHES}}
     assert (g.noise is None) == (noise_scale == 0)
     want = eager_reference(model, hp, f, BLOCK, CONTEXT, noise_scale, 9, "cpu")
     for k, (a, b) in enumerate(zip(got, want)):
@@ -391,8 +398,7 @@ def test_card_replay_counts_91_b1_launches(card):
     svc = StreamingSvc(model, f["spk"], hp, CARD_BLOCK, CARD_CONTEXT, 0.25, 4)
     svc.push(f["ppg"][:CARD_BLOCK], f["vec"][:CARD_BLOCK], f["pit"][:CARD_BLOCK])
     g = stream._graphs[model][(CARD_CONTEXT, CARD_BLOCK, 0.25)]
-    assert g.launches == [dict.fromkeys(snake_cuda.COUNTERS, 0) | {"launches": 91},
-                          {"launches": 0}]
+    assert g.launches == {snake_cuda.__name__: {"launches": 91}}
     n0, r0 = snake_cuda.launches, stream.graph_replays
     for k in range(1, 4):
         sl = slice(k * CARD_BLOCK, (k + 1) * CARD_BLOCK)

@@ -1,7 +1,8 @@
 """CREPE's Viterbi trellis in the port (ops/viterbi_cuda.py,
-csrc/viterbi_trellis.cu): the plain version against the stream's numpy loop
-(infer/stream_extract.py) bit for bit, values and pointers, over masked
-bins, planted ties, large carried values and a value carried across calls;
+csrc/viterbi_trellis.cu): the plain version and the stream's trellis
+(infer/stream_extract.py) against a float32 numpy loop bit for bit, values
+and pointers, over masked bins, planted ties, large carried values and a
+value carried across calls;
 the kernel's work plan (the out-of-band scores once a source, their prefix
 and suffix maxima, the band walked in index order) emulated in numpy and
 held to the same bits; the banded form of the transition matrix and its
@@ -33,26 +34,40 @@ def _observations(n: int, seed: int, kind: str) -> np.ndarray:
         obs[1::5, 40] = obs[1::5, 200] = 0.0
     else:
         probs = rng.random((n, BINS)).astype(np.float32) ** 8
-        obs = np.log(np.maximum(crepe.viterbi_observations(probs), 1e-30)).astype(np.float32)
+        obs = crepe.log_observations(crepe.viterbi_observations(probs))
     obs[:, :lo] = MASKED
     obs[:, hi:] = MASKED
     return obs
 
 
-def _stream_numpy(chunks: list[np.ndarray], value0: np.ndarray | None = None,
-                  device="cpu"):
-    """The stream's own trellis (`StreamingCrepe._advance`; on the CPU its
-    numpy loop) fed `chunks` of observations in turn, from frame 0 or,
-    given value0 (CPU only), from a value carried at frame 0:
-    (value, {frame: pointers})."""
+def _numpy_loop(chunks: list[np.ndarray], value0: np.ndarray | None = None):
+    """The trellis as a float32 numpy loop, one frame at a time, fed
+    `chunks` of observations in turn, from frame 0 or, given value0, from a
+    value carried at frame 0: (value, {frame: pointers})."""
+    log_trans = crepe._log_transition()
+    value, ptrs, t = value0, {}, 0 if value0 is None else 1
+    for o in np.concatenate(chunks):
+        if value is None:
+            value = o + np.float32(np.log(1.0 / BINS))
+        else:
+            scores = value[:, None] + log_trans  # [from, to]
+            ptrs[t] = scores.argmax(axis=0)
+            value = scores.max(axis=0) + o
+        t += 1
+    return value, ptrs
+
+
+def _stream(chunks: list[np.ndarray], value0: np.ndarray | None = None, device="cpu"):
+    """The stream's own trellis (`StreamingCrepe._step`) fed `chunks` of
+    observations in turn, from frame 0 or, given value0, from a value
+    carried at frame 0: (value, {frame: pointers}) on the host."""
     sc = se.StreamingCrepe(crepe.Crepe("tiny").eval().to(device), device=device)
-    feed = iter(chunks)
-    sc._obs_log = lambda rows: next(feed)
     if value0 is not None:
-        sc.head, sc.value = 0, value0
+        sc.head, sc.value = 0, torch.from_numpy(value0).to(device)
     for chunk in chunks:
-        sc._advance(sc.head + len(chunk))
-    return sc.value, sc.ptrs
+        sc._step(chunk)
+    assert sc.best == int(np.argmax(sc.value.cpu().numpy()))
+    return sc.value.cpu().numpy(), sc.ptrs
 
 
 def _kernel_plan(obs: np.ndarray, value: np.ndarray | None, trans: vc.BandedTransition):
@@ -104,16 +119,21 @@ CASES = ["masked", "ties"]
 @pytest.mark.parametrize("kind", CASES)
 def test_plain_equals_the_stream_numpy_loop(kind):
     """From frame 0 in one call of 100 frames, and carried across calls of
-    50 + 50 (the stream's pushes): the same value and pointers to the bit."""
+    50 + 50 (the stream's pushes): the plain version, the stream and the
+    numpy loop give the same value and pointers to the bit."""
     obs = _observations(100, seed=1, kind=kind)
     trans = crepe.banded_transition()
     value, ptrs = vc.viterbi_trellis_plain(torch.from_numpy(obs), None, trans)
     assert value.dtype == torch.float32 and value.shape == (BINS,)
     assert ptrs.dtype == torch.int16 and ptrs.shape == (99, BINS)
+    want_value, want_ptrs = _numpy_loop([obs])
+    want_ptrs = np.stack([want_ptrs[t] for t in range(1, 100)])
+    np.testing.assert_array_equal(_bits(value), _bits(want_value))
+    np.testing.assert_array_equal(ptrs.numpy(), want_ptrs)
     for chunks in ([obs], [obs[:50], obs[50:]], [obs[:1], obs[1:37], obs[37:]]):
-        want_value, want_ptrs = _stream_numpy(chunks)
-        np.testing.assert_array_equal(_bits(value), _bits(want_value))
-        np.testing.assert_array_equal(ptrs.numpy(), np.stack([want_ptrs[t] for t in range(1, 100)]))
+        got_value, got_ptrs = _stream(chunks)
+        np.testing.assert_array_equal(_bits(got_value), _bits(want_value))
+        np.testing.assert_array_equal(np.stack([got_ptrs[t] for t in range(1, 100)]), want_ptrs)
     value_50, ptrs_50 = vc.viterbi_trellis_plain(torch.from_numpy(obs[:50]), None, trans)
     value_100, ptrs_100 = vc.viterbi_trellis_plain(torch.from_numpy(obs[50:]), value_50, trans)
     np.testing.assert_array_equal(_bits(value_100), _bits(value))
@@ -124,15 +144,20 @@ def test_plain_equals_the_stream_numpy_loop(kind):
 def test_plain_equals_the_stream_from_a_large_carried_value(kind):
     """A value carried far into a stream (~-8,000: a ulp of 2^-11, so that
     sources of different values round to the same score): still the numpy
-    loop's bits, the first index of each tie."""
+    loop's bits, the first index of each tie, in the plain version and in
+    the stream carried across calls of 17 + 23."""
     rng = np.random.default_rng(2)
     value0 = (-8000.0 + rng.standard_normal(BINS) * 0.01).astype(np.float32)
     obs = _observations(40, seed=3, kind=kind)
-    want_value, want_ptrs = _stream_numpy([obs[:17], obs[17:]], value0=value0)
+    want_value, want_ptrs = _numpy_loop([obs], value0=value0)
     value, ptrs = vc.viterbi_trellis_plain(torch.from_numpy(obs), torch.from_numpy(value0),
                                            crepe.banded_transition())
-    np.testing.assert_array_equal(_bits(value), _bits(want_value))
-    np.testing.assert_array_equal(ptrs.numpy(), np.stack([want_ptrs[t] for t in range(1, 41)]))
+    stream_value, stream_ptrs = _stream([obs[:17], obs[17:]], value0=value0)
+    for got_value, got_ptrs in ((value, dict(enumerate(ptrs.numpy(), 1))),
+                                (stream_value, stream_ptrs)):
+        np.testing.assert_array_equal(_bits(got_value), _bits(want_value))
+        np.testing.assert_array_equal(np.stack([got_ptrs[t] for t in range(1, 41)]),
+                                      np.stack([want_ptrs[t] for t in range(1, 41)]))
 
 
 def _start(start: str, obs: np.ndarray, rng) -> np.ndarray | None:
@@ -221,15 +246,14 @@ def test_cuda_entry_refuses_cpu_tensors_and_counts_nothing():
 
 
 def test_cpu_stream_runs_no_card_frame():
-    """A CPU stream keeps the numpy loop: `crepe_card_frames` stays where
-    it was while `crepe_frames` grows, and no kernel is launched."""
+    """A CPU stream runs the plain trellis: `crepe_frames` grows while
+    `launches_trellis` stays where it was, and the value stays on the CPU."""
     sc = se.StreamingCrepe(crepe.Crepe("tiny").eval(), device="cpu")
     before, launches = se.counts(), vc.counts()
     sc.push(np.random.default_rng(7).standard_normal(8000).astype(np.float32) * 0.1)
     after = se.counts()
-    assert not sc.card and after["crepe_frames"] - before["crepe_frames"] == sc.head + 1 > 0
-    assert after["crepe_card_frames"] == before["crepe_card_frames"]
-    assert vc.counts() == launches
+    assert after["crepe_frames"] - before["crepe_frames"] == sc.head + 1 > 0
+    assert sc.value.device.type == "cpu" and vc.counts() == launches
 
 
 def test_offline_trellis_keeps_the_plain_loop_on_the_cpu():
@@ -238,7 +262,7 @@ def test_offline_trellis_keeps_the_plain_loop_on_the_cpu():
     no step."""
     obs = _observations(30, seed=8, kind="masked")
     value, ptrs = crepe.viterbi_trellis(torch.from_numpy(obs))
-    want_value, want_ptrs = _stream_numpy([obs])
+    want_value, want_ptrs = _numpy_loop([obs])
     np.testing.assert_array_equal(_bits(value), _bits(want_value))
     np.testing.assert_array_equal(ptrs.numpy(), np.stack([want_ptrs[t] for t in range(1, 30)]))
     value, ptrs = crepe.viterbi_trellis(torch.from_numpy(obs[:1]))
@@ -294,14 +318,14 @@ def _voice(seconds: float, seed: int) -> np.ndarray:
 @pytest.mark.parametrize("kind", CASES)
 def test_card_stream_equals_the_cpu_stream(card, kind):
     """The same observations through a card stream (one launch a call, the
-    value carried on the card) and a CPU stream (the numpy loop), in calls
-    of 1, 49, 50 and 64 frames: the same value and pointers to the bit."""
+    value carried on the card) and the numpy loop, in calls of 1, 49, 50
+    and 64 frames: the same value and pointers to the bit."""
     obs = _observations(164, seed=10, kind=kind)
     chunks = [obs[:1], obs[1:50], obs[50:100], obs[100:]]
     launches = vc.launches_trellis
-    got_value, got_ptrs = _stream_numpy(chunks, device=card)
+    got_value, got_ptrs = _stream(chunks, device=card)
     assert vc.launches_trellis == launches + len(chunks)
-    want_value, want_ptrs = _stream_numpy(chunks)
+    want_value, want_ptrs = _numpy_loop(chunks)
     np.testing.assert_array_equal(_bits(got_value), _bits(want_value))
     assert sorted(got_ptrs) == sorted(want_ptrs) == list(range(1, 164))
     for t in want_ptrs:
@@ -311,22 +335,19 @@ def test_card_stream_equals_the_cpu_stream(card, kind):
 @pytest.mark.card
 def test_card_stream_one_launch_a_push_and_flush_equals_offline(card):
     """A CREPE "tiny" stream on the card: one trellis launch a push (and at
-    the flush), `crepe_card_frames` equal to `crepe_frames`; its flush path
-    is the card's offline `viterbi_decode` path on the same audio, every
-    frame."""
+    the flush), the value kept on the card; its flush path is the card's
+    offline `viterbi_decode` path on the same audio, every frame."""
     torch.manual_seed(0)
     model = crepe.Crepe("tiny").eval().to(card)
     audio = _voice(4.0, seed=9)
     block = 16000
     sc = se.StreamingCrepe(model, device=card)
-    assert sc.card
     for s in range(0, len(audio), block):
         before, launches = se.counts(), vc.launches_trellis
         sc.push(audio[s : s + block])
         after = se.counts()
         assert vc.launches_trellis == launches + 1
-        assert (after["crepe_card_frames"] - before["crepe_card_frames"]
-                == after["crepe_frames"] - before["crepe_frames"] > 0)
+        assert after["crepe_frames"] - before["crepe_frames"] > 0 and sc.value.is_cuda
     launches = vc.launches_trellis
     sc.finish()
     assert vc.launches_trellis == launches + 1

@@ -31,8 +31,8 @@ A lock holds the shared buffers from the copies in to the read back. If
 the capture raises, the error is logged once and that model and window run
 op by op. On the CPU the forward runs op by op, as before.
 `graph_captures`, `graph_replays` and `eager_forwards` count forwards; a
-replay adds the kernel launches its capture counted to the kernels' own
-counters (`KERNEL_MODULES`' `add_counts`), which the graph's launches skip.
+replay adds what its capture counted (utils/counters.py: the kernels'
+launches) to the counters, which the graph's launches skip.
 The key is read on every push (a walk over the parameters and buffers), so
 a model moved under a live stream is captured again, never replayed at the
 addresses it left.
@@ -50,22 +50,18 @@ import torch
 
 from ..models.synthesizer import SynthesizerInfer
 from ..nn.nsf import source_hn_nsf
-from ..ops import amp_cuda, snake_cuda
+from ..utils import counters
 from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 
 N_HARMONICS = 11  # the fundamental and 10 harmonics of the NSF source
 WARM_FORWARDS = 2  # eager forwards on a side stream before a capture
-GRAPH_DEVICES = ("cuda",)  # device types whose pushes replay a CUDA graph
 
 graph_captures = 0  # push forwards captured into a CUDA graph
 graph_replays = 0   # push forwards run as a replay
 eager_forwards = 0  # push forwards run op by op (the CPU, or after a failed capture)
-
-# the forward's kernel modules, whose launch counters (`counts`, `add_counts`)
-# a replay adds its capture's launches to
-KERNEL_MODULES = (snake_cuda, amp_cuda)
+counters.declare(__name__, "graph_captures", "graph_replays", "eager_forwards")
 
 log = logging.getLogger(__name__)
 _graphs: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # model -> {window: _PushGraph}
@@ -103,12 +99,9 @@ def graph_key(model: torch.nn.Module, context: int, block: int, noise_scale: flo
             tuple(t.data_ptr() for t in tensors))
 
 
-def _kernel_counts() -> list[dict]:
-    return [module.counts() for module in KERNEL_MODULES]
-
-
-def _minus(after: list[dict], before: list[dict]) -> list[dict]:
-    return [{name: a[name] - b[name] for name in a} for a, b in zip(after, before)]
+def _graphed(dev: torch.device) -> bool:
+    """Whether pushes on `dev` replay a CUDA graph: on the card."""
+    return dev.type == "cuda"
 
 
 def _warm(fn, dev: torch.device) -> None:
@@ -143,7 +136,7 @@ class _PushGraph:
         self.lock = threading.Lock()
         self.graph = self.out = None
         self.failed = False
-        self.launches: list[dict] = []  # kernel launches a replay, as _kernel_counts
+        self.launches: dict = {}  # what a replay counts, as counters.counts gives it
         self.ppg = torch.zeros((1, total, ppg_dim), device=dev)
         self.vec = torch.zeros((1, total, vec_dim), device=dev)
         self.pit = torch.zeros((1, total), device=dev)
@@ -165,13 +158,12 @@ class _PushGraph:
         global graph_captures
         dev = self.ppg.device
         _warm(lambda: self.forward(model), dev)
-        before = _kernel_counts()
+        before = counters.counts()
         try:
             graph, out = _capture(lambda: self.forward(model), dev)
         finally:
-            launches = _minus(_kernel_counts(), before)
-            for module, counted in zip(KERNEL_MODULES, launches):
-                module.add_counts({name: -n for name, n in counted.items()})
+            launches = counters.since(before)
+            counters.add_counts(launches, sign=-1)
         self.graph, self.out = graph, out
         self.launches = launches
         graph_captures += 1
@@ -179,8 +171,7 @@ class _PushGraph:
     def replay(self) -> torch.Tensor:
         global graph_replays
         self.graph.replay()
-        for module, launches in zip(KERNEL_MODULES, self.launches):
-            module.add_counts(launches)
+        counters.add_counts(self.launches)
         graph_replays += 1
         return self.out
 
@@ -261,7 +252,7 @@ class StreamingSvc:
         every stream of the model with this window and noise scale, made
         anew when the model's parameters moved; None on the CPU and after a
         failed capture."""
-        if self.dev.type not in GRAPH_DEVICES:
+        if not _graphed(self.dev):
             return None
         key = graph_key(self.model, self.context, self.block, self.noise_scale,
                         self._tensor_dicts)

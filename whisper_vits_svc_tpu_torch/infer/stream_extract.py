@@ -3,13 +3,11 @@
 
   * CREPE: a 320-hop frame is computed once its whole 1024-sample support
     has arrived, so every probability row equals the offline one; the
-    Viterbi trellis advances online (the offline trellis's float32 adds,
-    maxima and first-index argmaxes), a frame is emitted by backtracing
-    from the newest head `lag` frames ahead, and the flush backtraces the
-    whole trellis: the offline path. With the model on the card the new
-    frames go through the trellis kernel (ops/viterbi_cuda.py) in one
-    launch a push, the offline decode's kernel; on the CPU through a numpy
-    loop, its plain version's operations.
+    Viterbi trellis advances online through the offline decode's
+    observations and trellis (`viterbi_cuda.viterbi_trellis`: on the card
+    one kernel launch a push, on the CPU its plain version), a frame is
+    emitted by backtracing from the newest head `lag` frames ahead, and the
+    flush backtraces the whole trellis: the offline path.
   * HuBERT: each block runs on [carried context | block] (2 s by default,
     one shape); only the new block's frames are emitted.
   * Whisper: the whole sliding 15 s window is recomputed each block and the
@@ -31,10 +29,9 @@ its device work lies inside it: `svc.extract.whisper`, `.hubert`, `.crepe`
 (holding `.crepe.trellis`: the trellis, and on the card its upload and
 read-back) and `.emit`; `flush` opens `.crepe` and `.emit`.
 `whisper_windows` and `hubert_windows` count the windows run,
-`crepe_frames` the CREPE frames the stream needed, `crepe_card_frames`
-those of them whose trellis ran on the card and `crepe_rows` the rows
+`crepe_frames` the CREPE frames the stream needed and `crepe_rows` the rows
 launched for them, the static batch's padding included (`counts`,
-`add_counts`).
+`add_counts`; utils/counters.py).
 """
 
 from __future__ import annotations
@@ -45,17 +42,17 @@ import torch
 from ..models import hubert as hubert_mod
 from ..models import whisper as whisper_mod
 from ..models.crepe import (
-    PITCH_BINS,
     Crepe,
-    _log_transition,
     banded_transition,
     bins_to_cents,
     cents_to_frequency,
     crepe_probabilities,
-    frequency_to_bins,
+    log_observations,
     nan_mean_filter,
+    viterbi_observations,
 )
 from ..ops import viterbi_cuda
+from ..utils import counters
 from ..utils.profiling import span
 from .stream import model_on
 
@@ -67,22 +64,9 @@ VEC_DIM = 256                  # HuBERT-soft units
 whisper_windows = 0  # sliding whisper windows run
 hubert_windows = 0   # carried-context HuBERT windows run
 crepe_frames = 0     # CREPE frames the streams needed
-crepe_card_frames = 0  # those of them whose trellis step ran on the card
 crepe_rows = 0       # CREPE rows launched for them (whole static batches)
-COUNTERS = ("whisper_windows", "hubert_windows", "crepe_frames", "crepe_card_frames",
-            "crepe_rows")
-
-
-def counts() -> dict:
-    """This module's counters, by name."""
-    return {name: globals()[name] for name in COUNTERS}
-
-
-def add_counts(delta: dict) -> None:
-    """Add `delta` (a counter's name -> count, as `counts` gives them) to
-    the counters."""
-    for name, n in delta.items():
-        globals()[name] += n
+counts, add_counts = counters.declare(__name__, "whisper_windows", "hubert_windows",
+                                      "crepe_frames", "crepe_rows")
 
 
 class StreamingWhisper:
@@ -159,11 +143,11 @@ class StreamingCrepe:
 
     Frame i needs samples [i*320 - 512, i*320 + 512) (the offline framing's
     WINDOW/2 padding); it is computed once they exist, in batches of
-    _CREPE_BATCH through `crepe_probabilities`. The trellis follows the
-    model's device: on the card one kernel launch a push, carrying its
-    value there; on the CPU a numpy loop. `decode` backtraces from the
-    newest head; at the flush the head is the last frame and the path is the
-    offline `viterbi_decode` path."""
+    _CREPE_BATCH through `crepe_probabilities`. The trellis runs on the
+    model's device (on the card one kernel launch a push) and carries its
+    value there; the pointers come back to the host. `decode` backtraces
+    from the newest head; at the flush the head is the last frame and the
+    path is the offline `viterbi_decode` path."""
 
     def __init__(self, model: Crepe, fmin: float = 50.0, fmax: float = 1000.0,
                  device: str | torch.device | None = "cuda"):
@@ -172,16 +156,11 @@ class StreamingCrepe:
         self.buf = np.zeros(0, np.float32)   # unconsumed samples and their context
         self.buf_start = 0                   # global sample index of buf[0]
         self.total = 0
-        self.minidx = int(frequency_to_bins(fmin))
-        self.maxidx = int(frequency_to_bins(fmax, np.ceil))
-        # float32, the offline trellis's operations one for one, so that the
-        # flush's path equals the offline one to the bit
-        self.log_trans = _log_transition()
+        self.fmin, self.fmax = fmin, fmax
         self.head = -1                       # last frame through the trellis
-        self.value = None                    # [360] trellis value at head
+        self.value = None                    # [360] trellis value at head, on dev
+        self.best = 0                        # the value's first argmax, the backtrace's start
         self.ptrs: dict[int, np.ndarray] = {}  # frame t -> backpointers [360]
-        self.card = self.dev.type == "cuda"  # the trellis on the card
-        self._value_card = None              # [360] the value at head, there
 
     def _frame_rows(self, frames: list[int]) -> np.ndarray:
         """[len(frames), 1024] windows of the global frames; samples out of
@@ -195,50 +174,29 @@ class StreamingCrepe:
                 rows[r, src_lo - b0 : src_hi - b0] = self.buf[src_lo:src_hi]
         return rows
 
-    def _obs_log(self, rows: np.ndarray) -> np.ndarray:
-        """Probabilities -> the fmin/fmax mask -> softmax -> log, float32 (the
-        offline decode's observations)."""
-        probs = crepe_probabilities(self.model, rows, batch_size=_CREPE_BATCH)
-        masked = probs.copy()
-        masked[:, : self.minidx] = -np.inf
-        masked[:, self.maxidx :] = -np.inf
-        ex = np.exp(masked - masked.max(axis=1, keepdims=True))
-        soft = ex / ex.sum(axis=1, keepdims=True)
-        return np.log(np.maximum(soft, 1e-30))
-
     def _advance(self, upto_frame: int):
         """Run the trellis through global frames (head, upto_frame]."""
         global crepe_frames, crepe_rows
-        new = list(range(self.head + 1, upto_frame + 1))
+        new = range(self.head + 1, upto_frame + 1)
         if not new:
             return
-        obs = self._obs_log(self._frame_rows(new))
+        probs = crepe_probabilities(self.model, self._frame_rows(new), batch_size=_CREPE_BATCH)
+        obs = log_observations(viterbi_observations(probs, self.fmin, self.fmax))
         crepe_frames += len(new)
         crepe_rows += -(-len(new) // _CREPE_BATCH) * _CREPE_BATCH
         with span("svc.extract.crepe.trellis"):
-            if self.card:
-                self._advance_card(new, obs)
-            else:
-                for t, o in zip(new, obs):
-                    if t == 0:
-                        self.value = o + np.float32(np.log(1.0 / PITCH_BINS))
-                    else:
-                        scores = self.value[:, None] + self.log_trans  # [from, to]
-                        self.ptrs[t] = scores.argmax(axis=0)
-                        self.value = scores.max(axis=0) + o
-        self.head = upto_frame
+            self._step(obs)
 
-    def _advance_card(self, new: list[int], obs: np.ndarray):
-        """The frames `new` through one launch of the trellis kernel: obs up,
-        the value carried on the card, the pointers (int16) and the value
-        back."""
-        global crepe_card_frames
-        steps = new if self._value_card is not None else new[1:]  # frame 0 starts it
-        self._value_card, ptrs = viterbi_cuda.viterbi_trellis_cuda(
-            torch.from_numpy(obs).to(self.dev), self._value_card, banded_transition())
-        self.ptrs.update(zip(steps, ptrs.cpu().numpy()))
-        self.value = self._value_card.cpu().numpy()
-        crepe_card_frames += len(new)
+    def _step(self, obs: np.ndarray):
+        """The next len(obs) frames through the trellis, from the value at
+        head (frame 0 starts it): obs [n, 360] to the device, the pointers
+        (int16) and the value's argmax back."""
+        first = self.head + 1 + (self.value is None)
+        self.value, ptrs = viterbi_cuda.viterbi_trellis(
+            torch.from_numpy(obs).to(self.dev), self.value, banded_transition())
+        self.ptrs.update(zip(range(first, first + len(ptrs)), ptrs.cpu().numpy()))
+        self.best = int(np.argmax(self.value.cpu().numpy()))
+        self.head += len(obs)
 
     def push(self, samples: np.ndarray):
         samples = np.asarray(samples, np.float32)
@@ -263,7 +221,7 @@ class StreamingCrepe:
         """Fixed-lag path of global frames [lo, hi), backtraced from the
         newest head (hi - 1 <= head)."""
         assert hi - 1 <= self.head and lo >= 0
-        b = int(np.argmax(self.value))
+        b = self.best
         path_rev = [b]
         for t in range(self.head, lo, -1):
             b = int(self.ptrs[t][b])

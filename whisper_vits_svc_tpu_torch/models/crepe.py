@@ -163,13 +163,19 @@ def viterbi_trellis(log_prob: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
     return viterbi_cuda.viterbi_trellis(log_prob, None, banded_transition())
 
 
+def log_observations(probs: np.ndarray) -> np.ndarray:
+    """[T, 360] softmaxed probabilities (`viterbi_observations`) -> the
+    trellis's log observations, float32."""
+    return np.log(np.maximum(probs, 1e-30)).astype(np.float32)
+
+
 def viterbi_decode(probs: np.ndarray, device: str | torch.device | None = "cuda") -> np.ndarray:
     """[T, 360] probabilities (softmaxed) -> [T] bin path: the HMM of
     librosa.sequence.viterbi with the reference's transition matrix
     (decode.py:55-80); the trellis on `device` (the card unless the caller
     asks for the CPU), the backtrace on the host."""
-    log_prob = np.log(np.maximum(probs, 1e-30)).astype(np.float32)
-    value, ptrs = viterbi_trellis(torch.from_numpy(log_prob).to(resolve_device(device)))
+    value, ptrs = viterbi_trellis(torch.from_numpy(log_observations(probs))
+                                  .to(resolve_device(device)))
     value, ptrs = value.cpu().numpy(), ptrs.cpu().numpy()
     path = np.empty(len(probs), np.int64)
     path[-1] = int(np.argmax(value))

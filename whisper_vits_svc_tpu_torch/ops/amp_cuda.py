@@ -5,14 +5,15 @@ launch computes `x + conv2_{k,1}(SnakeAlias(conv1_{k,d}(SnakeAlias(x))))` on
 [B, C, T], both convolutions zero-padded, both snakes edge-replicated, with
 the weight norm already folded into the (C, C, k) kernels. The kernel is
 bound by its two channel mixes, which it runs as 3xTF32 products on the
-tensor cores (see the note in the source). It is built and bound as the
-snake kernels are (ops/snake_cuda.py); `amp_geometry` and `amp_tile` give
-its tile plan, as the source computes it.
+tensor cores (see the note in the source). It is built and bound by
+ops/cuda_build.py and reads the snake kernels' FIR taps
+(`snake_cuda.fir_taps`); `amp_geometry` and `amp_tile` give its tile plan,
+as the source computes it.
 
 `amp_iter` takes the plain PyTorch version (`amp_iter_ref`) only for a CPU
 tensor; for a CUDA tensor it launches the kernel or raises. The kernel is
 forward only, as in the JAX package. `launches` counts kernel launches
-(`counts`, `add_counts`).
+(`counts`, `add_counts`; utils/counters.py).
 """
 
 from __future__ import annotations
@@ -25,9 +26,11 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.snake import snake_alias_fused_cm
-from . import snake_cuda
+from ..utils import counters
+from .cuda_build import CSRC, load_library, param
+from .snake_cuda import fir_taps
 
-SOURCE = snake_cuda.CSRC / "amp_iter.cu"
+SOURCE = CSRC / "amp_iter.cu"
 # the kernel holds every channel of a time tile in one block
 MAX_C = 32
 # shared memory of an H100 SM, and the kernel's target of two resident
@@ -42,17 +45,7 @@ MIN_TILE = 128
 H100_SMS = 132
 
 launches = 0
-
-
-def counts() -> dict:
-    """This module's launch counter, by name, as snake_cuda.counts."""
-    return {"launches": launches}
-
-
-def add_counts(delta: dict) -> None:
-    """Add `delta` to the counter, as snake_cuda.add_counts."""
-    global launches
-    launches += delta.get("launches", 0)
+counts, add_counts = counters.declare(__name__, "launches")
 
 
 def use_fused_iter(c: int, t: int, b: int = 1) -> bool:
@@ -158,7 +151,7 @@ def amp_iter_ref(x: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, a1: torch.
 @lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     ptr, integer = ctypes.c_void_p, ctypes.c_int
-    return snake_cuda.load_library(
+    return load_library(
         SOURCE, "amp_iter_forward",
         [ptr] * 11 + [ctypes.POINTER(ctypes.c_float)] + [integer] * 7 + [ptr],
         "amp_iter_error_string")
@@ -201,7 +194,7 @@ def amp_iter_cuda(x: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, a1: torch
             raise ValueError(f"{name} must be [{c}], got {tuple(v.shape)}")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     tile = amp_tile(b, c, t, kernel_size, d, sms)
-    params = [snake_cuda._param(p, x.device) for p in (k1, b1, a1, be1, k2, b2, a2, be2)]
+    params = [param(p, x.device) for p in (k1, b1, a1, be1, k2, b2, a2, be2)]
     out = torch.empty_like(x)
     wfrag = torch.empty(wfrag_floats(c, kernel_size), dtype=torch.float32, device=x.device)
     lib = _library()
@@ -209,7 +202,7 @@ def amp_iter_cuda(x: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor, a1: torch
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.amp_iter_forward(
             x.data_ptr(), out.data_ptr(), *(p.data_ptr() for p in params), wfrag.data_ptr(),
-            snake_cuda._taps(), int(x.dtype == torch.bfloat16), b, c, t, kernel_size, d, tile,
+            fir_taps(), int(x.dtype == torch.bfloat16), b, c, t, kernel_size, d, tile,
             stream)
     if err:
         raise RuntimeError(f"amp_iter kernel launch failed: "

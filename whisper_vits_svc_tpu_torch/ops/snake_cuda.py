@@ -4,12 +4,10 @@ and their autograd Function.
 
 Replace the TPU kernels whisper_vits_svc_tpu/ops/pallas_snake.py::
 snake_alias_cm_pallas (forward; its `strips=True` launch and its `mxu=True`
-form too) and ::snake_alias_cm_pallas_bwd (backward). Each source is
-compiled at first use with nvcc into a plain C ABI shared library under
-<repo>/build/kernels/ (keyed by the hash of the source and the headers
-beside it) and bound with ctypes; `build` starts one nvcc per source, all at
-once. The snake kernels are bound by HBM bytes (see the notes in the
-sources).
+form too) and ::snake_alias_cm_pallas_bwd (backward). Each source is built
+and bound by ops/cuda_build.py. The snake kernels are bound by HBM bytes
+(see the notes in the sources); `fir_taps` gives their polyphase FIR taps,
+which csrc/amp_iter.cu reads too.
 
 The direct forward and the backward kernels share one work plan,
 `snake_plan`: a warp makes SEG_LEN (248) consecutive outputs of one (b, c)
@@ -36,33 +34,26 @@ forward goes through the operator `svc::snake_alias` (`snake_alias_op`),
 which torch.export keeps as one node: the serving artifact
 (infer/serving.py) runs the kernel too. `launches`, `launches_bwd`,
 `launches_strips` and `launches_mma` count kernel launches (`counts`,
-`add_counts`).
+`add_counts`; utils/counters.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
 from functools import lru_cache
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..nn.snake import _polyphase_taps, snake_alias_fused_cm
+from ..utils import counters
+from .cuda_build import CSRC, load_library, param
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = CSRC / "snake_alias.cu"
 SOURCE_BWD = CSRC / "snake_alias_bwd.cu"
 SOURCE_STRIPS = CSRC / "snake_alias_strips.cu"
 SOURCE_MMA = CSRC / "snake_alias_mma.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 
 VARIANTS = ("direct", "strips", "mma")
 # "strips" takes narrow, long shapes (the generator's last two stages at base
@@ -82,75 +73,8 @@ launches = 0
 launches_bwd = 0
 launches_strips = 0
 launches_mma = 0
-COUNTERS = ("launches", "launches_bwd", "launches_strips", "launches_mma")
-
-
-def counts() -> dict:
-    """This module's launch counters, by name."""
-    return {name: globals()[name] for name in COUNTERS}
-
-
-def add_counts(delta: dict) -> None:
-    """Add `delta` (a counter's name -> launches, as `counts` gives them)
-    to the counters: the launches of a CUDA graph's replay, which runs no
-    Python to count them."""
-    for name, n in delta.items():
-        globals()[name] += n
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.isfile(path):
-        raise RuntimeError("nvcc not found: the snake kernels are built with the CUDA toolkit")
-    return path
-
-
-def all_sources() -> tuple[Path, ...]:
-    """Every kernel source of the package."""
-    return tuple(sorted(CSRC.glob("*.cu")))
-
-
-def _lib_path(source: Path) -> Path:
-    headers = sorted(source.parent.glob("*.cuh"))
-    text = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
-    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
-
-
-def build(*sources: Path) -> list[Path]:
-    """Compile each source (default: every source under csrc/) into
-    build/kernels/ once per source version, one nvcc process per source, all
-    started together. Returns the libraries' paths."""
-    sources = sources or all_sources()
-    running = []
-    for source in sources:
-        lib = _lib_path(source)
-        if not lib.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-            running.append((source, subprocess.Popen(cmd), tmp, lib))
-    failed = [source.name for source, proc, _, _ in running if proc.wait() != 0]
-    if failed:
-        raise RuntimeError(f"nvcc failed on {', '.join(failed)}")
-    for _, _, tmp, lib in running:
-        os.replace(tmp, lib)
-    return [_lib_path(s) for s in sources]
-
-
-def load_library(source: Path, entry: str, argtypes: list, error_string: str) -> ctypes.CDLL:
-    """Build `source` if need be, load it, and declare its launch function
-    (returns a cudaError_t as int) and its error-string function."""
-    lib = ctypes.CDLL(str(build(source)[0]))
-    launch = getattr(lib, entry)
-    launch.argtypes, launch.restype = argtypes, ctypes.c_int
-    message = getattr(lib, error_string)
-    message.argtypes, message.restype = [ctypes.c_int], ctypes.c_char_p
-    return lib
+counts, add_counts = counters.declare(__name__, "launches", "launches_bwd", "launches_strips",
+                                      "launches_mma")
 
 
 _PTR, _INT, _TAPS = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
@@ -184,7 +108,9 @@ def _library_mma() -> ctypes.CDLL:
 
 
 @lru_cache(maxsize=None)
-def _taps():
+def fir_taps():
+    """The up and down FIRs' polyphase taps as the kernels read them: 24
+    floats, ae, ao, de, do (6 each) of the k=12 geometry."""
     ae, ao, oe, oo, de, do_, doe, doo = _polyphase_taps(12, 12)
     assert (oe, oo, doe, doo) == (-3, -2, -2, -3), "kernel assumes the k=12 geometry"
     assert len(ae) == len(ao) == len(de) == len(do_) == 6
@@ -227,7 +153,7 @@ def clamp_taps() -> dict[str, np.ndarray]:
 def _taps_bwd():
     """The backward kernel's 42 floats: ae, ao, de, do, hd, td, hxe, hxo, txe, txo."""
     edge = clamp_taps()
-    values = np.concatenate([np.asarray(_taps(), np.float32)]
+    values = np.concatenate([np.asarray(fir_taps(), np.float32)]
                             + [edge[k] for k in ("hd", "td", "hxe", "hxo", "txe", "txo")])
     return (ctypes.c_float * 42)(*values.tolist())
 
@@ -281,10 +207,6 @@ def _check_input(name: str, x: torch.Tensor, alpha: torch.Tensor, beta: torch.Te
                          f"{tuple(beta.shape)}")
 
 
-def _param(p: torch.Tensor, device: torch.device) -> torch.Tensor:
-    return p.detach().to(device=device, dtype=torch.float32).contiguous()
-
-
 def _launch_forward(name: str, library, x: torch.Tensor, alpha: torch.Tensor,
                     beta: torch.Tensor, before_taps: tuple = (), after_shape: tuple = ()):
     """Check the inputs, then launch `<name>_forward(x, out, alpha, beta,
@@ -294,13 +216,13 @@ def _launch_forward(name: str, library, x: torch.Tensor, alpha: torch.Tensor,
     _check_input(f"{name}_cuda", x, alpha, beta)
     lib = library()
     b, c, t = x.shape
-    alpha, beta = _param(alpha, x.device), _param(beta, x.device)
+    alpha, beta = param(alpha, x.device), param(beta, x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, f"{name}_forward")(
             x.data_ptr(), out.data_ptr(), alpha.data_ptr(), beta.data_ptr(), *before_taps,
-            _taps(), int(x.dtype == torch.bfloat16), b, c, t, *after_shape, stream)
+            fir_taps(), int(x.dtype == torch.bfloat16), b, c, t, *after_shape, stream)
     if err:
         message = getattr(lib, f"{name}_error_string")(err).decode()
         extra = f" with {after_shape}" if after_shape else ""
@@ -379,7 +301,7 @@ def down_fir_matrix() -> np.ndarray:
     kk < 24, B[kk][j] = de[kk - j - 1]) and O[q - 3 + kk] (rows 24 + kk,
     B[24 + kk][j] = do[kk - j])."""
     _, _, _, _, de, do_, _, _ = _polyphase_taps(12, 12)
-    _taps()  # asserts the geometry the offsets above assume
+    fir_taps()  # asserts the geometry the offsets above assume
     b_dn = np.zeros((48, 16), np.float32)
     for j in range(16):
         for m in range(6):
@@ -395,8 +317,8 @@ def _fir_device(device: torch.device) -> torch.Tensor:
     return torch.cat([hi.flatten(), lo.flatten()]).to(device)
 
 
-# blocks of the mma kernel per SM (its __launch_bounds__; tc_probe.py found
-# 2 or 4, and larger grids, slower): its warps walk their segments at a
+# blocks of the mma kernel per SM (its __launch_bounds__; 2 or 4, and larger
+# grids, measured slower: PERF.md): its warps walk their segments at a
 # stride of the grid's warps, each loading the next run while computing
 MMA_BLOCKS_PER_SM = 3
 
@@ -443,7 +365,7 @@ def snake_alias_bwd_cuda(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tenso
                          f"{tuple(x.shape)} on {x.device}")
     b, c, t = x.shape
     dy = dy.to(x.dtype).contiguous()
-    alpha, beta = _param(alpha, x.device), _param(beta, x.device)
+    alpha, beta = param(alpha, x.device), param(beta, x.device)
     lib = _library_bwd()
     plan = snake_plan(b, c, t, x.element_size())
     dx = torch.empty_like(x)

@@ -10,8 +10,8 @@ the transition matrix as a band of radius RADIUS and one number for every
 entry outside it (`banded` checks that form on the matrix it is given, bit
 for bit, and raises otherwise) and makes every score with the plain
 version's float32 add, so values and pointers are bitwise equal to it
-(see the note in the source). It is built and bound as the snake kernels
-are (ops/snake_cuda.py).
+(see the note in the source). It is built and bound by
+ops/cuda_build.py.
 
 `viterbi_trellis` takes the plain PyTorch version (`viterbi_trellis_plain`,
 a loop of one 360 x 360 add, max and argmax a frame) only for a CPU
@@ -20,7 +20,7 @@ tensor; for a CUDA tensor it launches the kernel or raises. Either returns
 int16, those of its n' steps) on the input's device. A call continues from
 the value it is given, or, given none, starts at the first frame plus
 log(1/360). `launches_trellis` counts kernel launches (`counts`,
-`add_counts`).
+`add_counts`; utils/counters.py).
 """
 
 from __future__ import annotations
@@ -31,27 +31,17 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import snake_cuda
+from ..utils import counters
+from .cuda_build import CSRC, load_library
 
-SOURCE = snake_cuda.CSRC / "viterbi_trellis.cu"
+SOURCE = CSRC / "viterbi_trellis.cu"
 BINS = 360      # the kernel's bins (CREPE's pitch bins), one thread each
 RADIUS = 11     # the band: |from - to| <= RADIUS
 # the first frame's prior, log(1/360), in float32
 INIT = np.float32(np.log(1.0 / BINS))
 
 launches_trellis = 0
-COUNTERS = ("launches_trellis",)
-
-
-def counts() -> dict:
-    """This module's launch counter, by name, as snake_cuda.counts."""
-    return {name: globals()[name] for name in COUNTERS}
-
-
-def add_counts(delta: dict) -> None:
-    """Add `delta` to the counters, as snake_cuda.add_counts."""
-    for name, n in delta.items():
-        globals()[name] += n
+counts, add_counts = counters.declare(__name__, "launches_trellis")
 
 
 @lru_cache(maxsize=None)
@@ -125,7 +115,7 @@ def viterbi_trellis_plain(obs: torch.Tensor, value: torch.Tensor | None,
 @lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     ptr = ctypes.c_void_p
-    return snake_cuda.load_library(
+    return load_library(
         SOURCE, "viterbi_trellis_forward",
         [ptr] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ptr],
         "viterbi_trellis_error_string")
