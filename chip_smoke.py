@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero without the final line):
 1. device: CUDA must be present (no CPU fallback); prints the card's name and
    power limit from nvidia-smi;
-2. build: compiles the six sources under csrc/ (snake_alias, snake_alias_bwd,
-   snake_alias_strips, snake_alias_mma, amp_iter, viterbi_trellis) with nvcc,
+2. build: compiles the seven sources under csrc/ (snake_alias, snake_alias_bwd,
+   snake_alias_strips, snake_alias_mma, amp_iter, viterbi_trellis,
+   crepe_conv) with nvcc,
    one process per source, started together, and times the build; where
    build/prev_kernels/ holds an earlier version's snake_alias_mma.cu,
    amp_iter.cu and snake_alias.cuh (a copy kept out of git), builds those
@@ -27,6 +28,17 @@ Phases (any failure exits non-zero without the final line):
    across a block's warps: chains built from TRELLIS_PROBE_SOURCE into
    build/latency_probe/), the launch plus 9 levels and one exchange a
    frame;
+2c. [crepe-conv]: CREPE's convolution kernel against its plain version on
+   the card: the whole forward's probabilities at 1, 50, 64 and 512 rows of
+   "full" and "tiny" (largest difference, within 1e-6), six launches a
+   forward, a second call bitwise equal to the first, a stream's 64-row
+   batch through crepe_probabilities running the kernel and no cuDNN
+   convolution (torch.profiler); then each layer of
+   "full" at 64 rows (the stream's batch) and at 512 (the offline batch):
+   the kernel's ms, the plain version's, cuDNN's Conv1d alone with its
+   heuristic and with cudnn.benchmark (library_ms), the bound (FLOPs at
+   67 TFLOP/s against bytes at 3.35 TB/s), the tile plan
+   (tools/crepe_conv_probe.py::layer_lines);
 3. kernel vs plain: the snake kernel against its plain PyTorch version at the
    five base-width stage shapes of a 1020-frame chunk and at odd shapes, in
    float32 and bfloat16, with CUDA-event times (inputs rotated over >100 MB
@@ -180,7 +192,8 @@ Phases (any failure exits non-zero without the final line):
    checkpoints) and push_audio over a 10 s synthetic voice in 1 s blocks,
    lag 4 (wall and latency per block, each stage's share, a replay and
    91 launches a synthesis push, one trellis launch a push and at the
-   flush with every CREPE frame's trellis on the card, a streaming CREPE's
+   flush with every CREPE frame's trellis on the card, six CREPE
+   convolution launches a CREPE batch, a streaming CREPE's
    flush path equal to the offline decode, the first block's features card
    vs CPU at [audio-in]'s bounds).
 
@@ -212,7 +225,8 @@ Phases (any failure exits non-zero without the final line):
    inference CLI from the exported checkpoint with the features (91 a
    chunk), the three extractor artifacts against their modules (whisper at
    its width cut to 4 layers; PPG and units 1e-3, CREPE 1e-4) with export
-   seconds and bytes; `[webui]` the WebUI's server in a thread: GET / in
+   seconds and bytes, CREPE's running its convolution kernel through the
+   operator svc::crepe_conv (6 launches a call); `[webui]` the WebUI's server in a thread: GET / in
    both languages, POST /export and POST /infer polled on /log until done
    (91 launches a chunk); `[tp]` sharded_ppg_fn in a one-rank NCCL group
    equal to the plain 24-layer WhisperEncoder on a 15 s window to the bit,
@@ -285,11 +299,12 @@ from whisper_vits_svc_tpu_torch.models import whisper as whisper_mod
 from whisper_vits_svc_tpu_torch.models.synthesizer import slice_segments
 from whisper_vits_svc_tpu_torch.nn.nsf import source_hn_nsf
 from whisper_vits_svc_tpu_torch.nn.snake import snake_alias_fused_cm
-from whisper_vits_svc_tpu_torch.ops import amp_cuda, cuda_build, snake_cuda, viterbi_cuda
+from whisper_vits_svc_tpu_torch.ops import amp_cuda, crepe_conv_cuda, cuda_build, snake_cuda
+from whisper_vits_svc_tpu_torch.ops import viterbi_cuda
 from whisper_vits_svc_tpu_torch.ops import stft as stft_mod
 from whisper_vits_svc_tpu_torch.parallel import ddp as tddp
 from whisper_vits_svc_tpu_torch.parallel import sharding
-from whisper_vits_svc_tpu_torch.tools import make_synth_dataset, train_health
+from whisper_vits_svc_tpu_torch.tools import crepe_conv_probe, make_synth_dataset, train_health
 from whisper_vits_svc_tpu_torch.train import checkpoint as tckpt
 from whisper_vits_svc_tpu_torch.train import loop as tloop
 from whisper_vits_svc_tpu_torch.train import step as tstep
@@ -425,6 +440,10 @@ SOURCE_MMA = "whisper_vits_svc_tpu_torch/csrc/snake_alias_mma.cu"
 # a lax.scan, not a Pallas kernel: the port's kernel for a scan on the hot path
 REPLACES_TRELLIS = "whisper_vits_svc_tpu/models/crepe.py:148"
 SOURCE_TRELLIS = "whisper_vits_svc_tpu_torch/csrc/viterbi_trellis.cu"
+# no Pallas kernel: the JAX package leaves CREPE's convolutions to XLA
+REPLACES_CREPE_CONV = "whisper_vits_svc_tpu/models/crepe.py (XLA convolutions)"
+SOURCE_CREPE_CONV = "whisper_vits_svc_tpu_torch/csrc/crepe_conv.cu"
+CREPE_CONV_ROWS = (1, 50, 64, 512)
 # an earlier version's tensor-core snake and fused AMP kernels, for the
 # comparison: a copy of their files (snake_alias_mma.cu, amp_iter.cu and the
 # snake_alias.cuh they include) kept out of git (build/ is ignored)
@@ -2732,6 +2751,78 @@ def report_trellis(tr: dict, smi: str) -> None:
           f"reached) | {smi}", flush=True)
 
 
+def crepe_conv_phase(device="cuda") -> dict:
+    """The CREPE convolution kernel against its plain version on the card:
+    the forward's probabilities at CREPE_CONV_ROWS rows of both capacities
+    (seeded weights, BatchNorm statistics away from their defaults), six
+    launches a forward, two calls bitwise equal; then the per-layer lines
+    of "full" at 64 and 512 rows (`crepe_conv_probe.layer_lines`)."""
+    dev = torch.device(device)
+    cases, prob_err = 0, 0.0
+    for capacity in ("full", "tiny"):
+        torch.manual_seed(7)
+        model = crepe_mod.Crepe(capacity).eval().to(dev)
+        with torch.no_grad():
+            for i in range(1, 7):
+                bn = getattr(model, f"conv{i}_BN")
+                bn.running_mean.uniform_(-0.2, 0.2)
+                bn.running_var.uniform_(0.5, 1.5)
+        for rows in CREPE_CONV_ROWS:
+            voice = synthetic_voice(rows * 0.01 + 0.2, 16000, seed=rows)
+            frames = crepe_mod.normalize_frames(torch.from_numpy(
+                crepe_mod.frame_audio(voice, 160)[:rows]).to(dev))
+            with torch.inference_mode():
+                launches = crepe_conv_cuda.launches_crepe_conv
+                got, again = model(frames), model(frames)
+                sync(device)
+                check(crepe_conv_cuda.launches_crepe_conv == launches + 12,
+                      f"crepe_conv: {crepe_conv_cuda.launches_crepe_conv - launches} launches "
+                      f"in two forwards of {capacity} at {rows} rows, expected 12")
+                check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                      f"crepe_conv: two forwards of {capacity} at {rows} rows differ")
+                want = crepe_conv_probe.forward(model, frames, "conv1d")
+            prob_err = max(prob_err, float((got - want).abs().max()))
+            cases += 1
+    check(prob_err <= 1e-6, f"crepe_conv: probabilities differ from the plain version by "
+                            f"{prob_err:.3e}, above 1e-6")
+    torch.manual_seed(0)
+    model = crepe_mod.Crepe("full").eval().to(dev)
+    voice = synthetic_voice(6.0, 16000, seed=3)
+    # the stream's call (64 rows through crepe_probabilities) runs the
+    # kernel and no cuDNN convolution
+    ran = crepe_conv_probe.device_kernels(lambda: crepe_mod.crepe_probabilities(
+        model, crepe_mod.frame_audio(voice, 320)[:50], batch_size=64))
+    cudnn = [k for k in ran if any(w in k for w in ("convolve", "fprop", "cudnn", "conv2d"))]
+    check(any("crepe_conv_kernel" in k for k in ran) and not cudnn,
+          f"crepe_conv: a 64-row batch ran {sorted(ran)}")
+    lines = {}
+    for rows in (64, 512):
+        frames = crepe_mod.normalize_frames(torch.from_numpy(
+            crepe_mod.frame_audio(voice, 160)[:rows]).to(dev))
+        with torch.inference_mode():
+            lines[rows] = crepe_conv_probe.layer_lines(model, frames[:, None, :])
+    return dict(cases=cases, prob_err=prob_err, lines=lines, ran=ran,
+                **{f"{key}_{rows}": sum(ln[key] for ln in lines[rows])
+                   for key in ("kernel_ms", "plain_ms", "bound_ms") for rows in (64, 512)},
+                **{f"library_ms_{rows}": sum(ln["library_ms"]["heuristic"] for ln in lines[rows])
+                   for rows in (64, 512)})
+
+
+def report_crepe_conv(cc: dict, smi: str) -> None:
+    print(f"[crepe-conv] kernel against its plain version in {cc['cases']} forwards (full and "
+          f"tiny at {', '.join(map(str, CREPE_CONV_ROWS))} rows): probabilities within "
+          f"{cc['prob_err']:.3e}, six launches a forward, two calls bitwise equal; a 64-row "
+          f"batch's device kernels (ms): {json.dumps(cc['ran'])} | {smi}", flush=True)
+    for rows, lines in cc["lines"].items():
+        for ln in lines:
+            print(f"[crepe-conv] {json.dumps(ln)}", flush=True)
+        print(f"[crepe-conv] {rows} rows, six layers: kernel {cc[f'kernel_ms_{rows}']:.3f} ms "
+              f"(bound {cc[f'bound_ms_{rows}']:.3f} ms, "
+              f"{100 * cc[f'bound_ms_{rows}'] / cc[f'kernel_ms_{rows}']:.0f}% reached), plain "
+              f"{cc[f'plain_ms_{rows}']:.3f} ms, cuDNN's convolutions alone "
+              f"{cc[f'library_ms_{rows}']:.3f} ms | {smi}", flush=True)
+
+
 @contextlib.contextmanager
 def stream_probes(device):
     """Wrap the streaming stages from outside and time each call (the card
@@ -2818,6 +2909,7 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
         reset_counts()
         replays0 = stream_mod.graph_replays
         trellis0, frames0 = viterbi_cuda.launches_trellis, stream_extract.counts()
+        conv0 = crepe_conv_cuda.launches_crepe_conv
         with stream_probes(device) as rec:
             svc, outs, walls = stream(len(blocks))
             blocks_rec = {k: list(v) for k, v in rec.items()}  # the blocks, not the flush
@@ -2828,8 +2920,13 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
             flush_s = time.perf_counter() - t0
         counts = read_counts()
         trellis = viterbi_cuda.launches_trellis - trellis0
+        crepe_convs = crepe_conv_cuda.launches_crepe_conv - conv0
         frames = {k: v - frames0[k] for k, v in stream_extract.counts().items()}
         on_card = torch.device(device).type == "cuda"
+        crepe_batches = frames["crepe_rows"] // stream_extract._CREPE_BATCH
+        check(crepe_convs == (6 * crepe_batches if on_card else 0),
+              f"stream audio: {crepe_convs} CREPE convolution launches for {crepe_batches} "
+              f"CREPE batches on {device}; expected six a batch on the card")
         check(trellis == (len(blocks) + 1 if on_card else 0),
               f"stream audio: {trellis} trellis launches for {len(blocks)} blocks and the "
               f"flush ({frames['crepe_frames']} CREPE frames) on {device}; expected a launch "
@@ -2896,6 +2993,7 @@ def stream_audio_phase(base_hp, widths: dict = AUDIO_IN_FULL, device="cuda",
                     prof_snakes=prof_snakes, peak=peak, rms=rms, errs=errs, pit_equal=pit_equal,
                     crepe_frames=len(crepe_frames), path_diff_512=path_diff_512,
                     trellis_launches=trellis, stream_crepe_frames=frames["crepe_frames"],
+                    crepe_conv_launches=crepe_convs, crepe_batches=crepe_batches,
                     block_s=STREAM_AUDIO_BLOCK / 16000, seconds=seconds,
                     phase_s=time.perf_counter() - phase_t0)
     finally:
@@ -3076,7 +3174,8 @@ def report_stream_audio(sa: dict, smi: str) -> None:
           f"{1e3 * sa['flush_s']:.2f} ms; mean ms a block by stage "
           + json.dumps({k: round(v, 2) for k, v in share.items()})
           + f"; {sa['pushes']} synthesis pushes, trellis launches {sa['trellis_launches']} "
-          f"(for {sa['stream_crepe_frames']} CREPE frames), snake launches "
+          f"(for {sa['stream_crepe_frames']} CREPE frames), CREPE convolution launches "
+          f"{sa['crepe_conv_launches']} (for {sa['crepe_batches']} CREPE batches), snake launches "
           f"{sa['counts']['direct']} "
           f"(one profiled block: {sa['prof_snakes']} snake kernels on the device); "
           f"peak device memory {sa['peak'] / 2**30:.2f} GiB | {smi}", flush=True)
@@ -3547,13 +3646,19 @@ def prep_flow_phase(base_hp, root: Path, pr: dict, widths: dict = AUDIO_IN_FULL,
             n = serving.export_extractor(kind, module, str(path),
                                          batch=SERVE_CREPE_BATCH if kind == "crepe" else 1)
             secs = time.perf_counter() - t0
+            conv0 = crepe_conv_cuda.launches_crepe_conv
             with torch.inference_mode():
                 out = serving.load_exported(str(path))(inputs[kind])
+            convs = crepe_conv_cuda.launches_crepe_conv - conv0
             err = max_err(out.cpu(), direct[kind].cpu())
             check(out.shape == direct[kind].shape and err <= SERVE_ATOL[kind],
                   f"{kind} artifact: {tuple(out.shape)}, max abs err {err:.3e} above "
                   f"{SERVE_ATOL[kind]}")
-            extractors[kind] = dict(export_s=secs, bytes=n, err=err, shape=list(out.shape))
+            want = 6 if kind == "crepe" and torch.device(device).type == "cuda" else 0
+            check(convs == want, f"{kind} artifact: {convs} CREPE convolution launches a "
+                                 f"call, expected {want}")
+            extractors[kind] = dict(export_s=secs, bytes=n, err=err, shape=list(out.shape),
+                                    crepe_convs=convs)
             path.unlink()
         del mods, direct
     return dict(train_s=train_s, train_counts=train_counts, trained=trained, export=str(export),
@@ -3592,7 +3697,8 @@ def report_prep_flow(pf: dict, smi: str) -> None:
               f"float32 artifact being about 2.5 GB; HuBERT and CREPE as [prep] loads them, "
               f"CREPE at {SERVE_CREPE_BATCH} frames) against their modules: " + "; ".join(
                   f"{k} export {v['export_s']:.2f} s, {v['bytes']} bytes, out {v['shape']}, "
-                  f"max abs err {v['err']:.3e} (bound {SERVE_ATOL[k]})"
+                  f"max abs err {v['err']:.3e} (bound {SERVE_ATOL[k]}), CREPE convolution "
+                  f"launches {v['crepe_convs']} a call"
                   for k, v in pf["extractors"].items()) + f" | {smi}", flush=True)
     print(f"[prep-flow] phase {pf['phase_s']:.1f} s", flush=True)
 
@@ -4199,16 +4305,19 @@ def main() -> int:
     compare = all(p.exists() for p in (*PREV_SOURCES, PREV_DIR / "snake_alias.cuh"))
     libs = cuda_build.build(*sources, *(PREV_SOURCES if compare else ()))
     for load in (snake_cuda._library, snake_cuda._library_bwd, snake_cuda._library_strips,
-                 snake_cuda._library_mma, amp_cuda._library, viterbi_cuda._library):
+                 snake_cuda._library_mma, amp_cuda._library, viterbi_cuda._library,
+                 crepe_conv_cuda._library):
         load()
     prev = load_prev()
-    check(len(sources) == 6, f"{len(sources)} kernel sources, expected 6")
+    check(len(sources) == 7, f"{len(sources)} kernel sources, expected 7")
     print(f"[build] {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s"
           + (f" (with the earlier mma and amp_iter from {PREV_DIR.name}/)" if prev else
              "; no build/prev_kernels/: no comparison with earlier kernels"), flush=True)
 
     trellis = trellis_phase()
     report_trellis(trellis, smi)
+    crepe_conv = crepe_conv_phase()
+    report_crepe_conv(crepe_conv, smi)
 
     hp = config_from_dict(BASE_MODEL_CONFIG)
     stages = stage_shapes(hp, 1, CHUNK_FRAMES)
@@ -4616,6 +4725,21 @@ def main() -> int:
         "ms_2000_frames": trellis["kernel_2000_ms"],
         "per": f"one push's {TRELLIS_PUSH} frames from a carried value, float32",
         "launches_by_path": {"stream_audio": sa["trellis_launches"]},
+    })
+    kernels.append({
+        "name": "crepe_conv", "route": "cuda", "source": SOURCE_CREPE_CONV,
+        "replaces": REPLACES_CREPE_CONV, "launches": sa["crepe_conv_launches"],
+        "max_abs_err": crepe_conv["prob_err"],
+        "ms": crepe_conv["kernel_ms_64"], "plain_ms": crepe_conv["plain_ms_64"],
+        "bound_ms": crepe_conv["bound_ms_64"],
+        "bound_by": "float32 FMAs at 67 TFLOP/s (bytes at 3.35 TB/s where larger)",
+        "library_ms": crepe_conv["library_ms_64"],
+        "ms_512_rows": crepe_conv["kernel_ms_512"], "plain_ms_512_rows": crepe_conv["plain_ms_512"],
+        "bound_ms_512_rows": crepe_conv["bound_ms_512"],
+        "library_ms_512_rows": crepe_conv["library_ms_512"],
+        "per": "CREPE full's six layers at the stream's 64 rows, float32 (the probabilities' "
+               "largest difference from the plain version as max_abs_err)",
+        "launches_by_path": {"stream_audio": sa["crepe_conv_launches"]},
     })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -57,7 +57,8 @@ def test_kernel_modules_and_sources_stand_alone():
 
     pkg = os.path.join(REPO, "whisper_vits_svc_tpu_torch")
     for module in ("ops/cuda_build.py", "utils/counters.py",
-                   "ops/snake_cuda.py", "ops/amp_cuda.py", "ops/viterbi_cuda.py", "nn/amp.py",
+                   "ops/snake_cuda.py", "ops/amp_cuda.py", "ops/viterbi_cuda.py",
+                   "ops/crepe_conv_cuda.py", "nn/amp.py",
                    "nn/snake.py", "tools/crepe_conv_probe.py", "ops/stft.py", "models/f0_alt.py",
                    "models/salience.py", "models/swipe.py", "models/dio.py", "models/praat.py",
                    "models/silero_vad.py", "infer/post.py", "infer/tools.py", "cli/misc.py",

@@ -185,15 +185,15 @@ def test_cuda_entries_refuse_cpu_tensors():
 
 
 def test_build_covers_every_source():
-    """`build` with no argument compiles every source under csrc/: the six
+    """`build` with no argument compiles every source under csrc/: the seven
     the package binds."""
-    from whisper_vits_svc_tpu_torch.ops import amp_cuda, cuda_build, viterbi_cuda
+    from whisper_vits_svc_tpu_torch.ops import amp_cuda, crepe_conv_cuda, cuda_build, viterbi_cuda
 
     names = sorted(p.name for p in cuda_build.all_sources())
-    assert names == ["amp_iter.cu", "snake_alias.cu", "snake_alias_bwd.cu",
+    assert names == ["amp_iter.cu", "crepe_conv.cu", "snake_alias.cu", "snake_alias_bwd.cu",
                      "snake_alias_mma.cu", "snake_alias_strips.cu", "viterbi_trellis.cu"]
     bound = {snake_cuda.SOURCE, snake_cuda.SOURCE_BWD, snake_cuda.SOURCE_STRIPS,
-             snake_cuda.SOURCE_MMA, amp_cuda.SOURCE, viterbi_cuda.SOURCE}
+             snake_cuda.SOURCE_MMA, amp_cuda.SOURCE, viterbi_cuda.SOURCE, crepe_conv_cuda.SOURCE}
     assert set(cuda_build.all_sources()) == bound
 
 

@@ -85,8 +85,9 @@ def test_push_audio_and_flush_make_their_trees(parts):
     """Three pushes and the flush under a profiler: one svc.push_audio each,
     its unit the stream's count, holding svc.extract then svc.push; the
     push's extract runs the four stages in order, CREPE's holding its
-    trellis; the flush's runs CREPE (its tail frames) and the emit;
-    svc.push keeps its own five children."""
+    probabilities, then its trellis; the flush's runs CREPE (its tail
+    frames, with the same two children) and the emit; svc.push keeps its
+    own five children."""
     audio = _voice(1.5)
     last = max((s.id for s in spans()), default=0)
     _run(parts, audio, profiled=True)
@@ -100,12 +101,13 @@ def test_push_audio_and_flush_make_their_trees(parts):
         assert [s.name for s in stages] == (EXTRACT_CHILDREN if i < 3 else
                                             ["svc.extract.crepe", "svc.extract.emit"])
         crepe = next(s for s in stages if s.name == "svc.extract.crepe")
-        assert [s.name for s in _kids(rec, crepe)] == ["svc.extract.crepe.trellis"]
+        assert [s.name for s in _kids(rec, crepe)] == ["svc.extract.crepe.probs",
+                                                      "svc.extract.crepe.trellis"]
         assert [s.name for s in _kids(rec, push)] == PUSH_CHILDREN
         assert all(s.unit == u.unit for s in (extract, *stages))
         assert u.t0_ns <= extract.t0_ns <= extract.t1_ns <= push.t0_ns <= push.t1_ns <= u.t1_ns
-    per_push = 1 + 1 + 4 + 1 + 1 + len(PUSH_CHILDREN)
-    per_flush = 1 + 1 + 2 + 1 + 1 + len(PUSH_CHILDREN)
+    per_push = 1 + 1 + 4 + 2 + 1 + len(PUSH_CHILDREN)
+    per_flush = 1 + 1 + 2 + 2 + 1 + len(PUSH_CHILDREN)
     assert len(rec) == 3 * per_push + per_flush
 
 

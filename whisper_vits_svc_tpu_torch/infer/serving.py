@@ -20,8 +20,10 @@ The snake kernel stays in the artifact. torch.export cannot trace its
 ctypes call, so on the card every SnakeAlias reaches it through the
 operator `svc::snake_alias` (ops/snake_cuda.py::snake_alias_op), which the
 trace keeps as one node; the loaders import that module before
-torch.export.load, which finds the operator by name. A CPU artifact holds
-the plain chain, as the CPU runs it everywhere.
+torch.export.load, which finds the operator by name. CREPE's convolution
+kernel stays in its extractor artifact the same way, through
+`svc::crepe_conv` (ops/crepe_conv_cuda.py::crepe_conv_op). A CPU artifact
+holds the plain chain, as the CPU runs it everywhere.
 
 An exported graph keeps the device it was traced on (constants made in
 forward, such as the NSF and mel tables, are baked in), so one file serves
@@ -38,7 +40,8 @@ from collections.abc import Mapping, Sequence
 import torch
 from torch import nn
 
-from ..ops import snake_cuda  # noqa: F401  registers svc::snake_alias for the loaders
+# register svc::snake_alias and svc::crepe_conv for the loaders
+from ..ops import crepe_conv_cuda, snake_cuda  # noqa: F401
 from ..utils.config import Config
 from ..utils.device import resolve_device
 

@@ -26,7 +26,9 @@ bookkeeping on the host.
 `StreamingExtractor.push` opens the span `svc.extract` (utils/profiling.py)
 with one child a stage, each closed after the stage's read-back so that
 its device work lies inside it: `svc.extract.whisper`, `.hubert`, `.crepe`
-(holding `.crepe.trellis`: the trellis, and on the card its upload and
+(holding `.crepe.probs`: the frames' upload, CREPE's forward, on the card
+six launches of the convolution kernel, and the probabilities' read-back;
+then `.crepe.trellis`: the trellis, and on the card its upload and
 read-back) and `.emit`; `flush` opens `.crepe` and `.emit`.
 `whisper_windows` and `hubert_windows` count the windows run,
 `crepe_frames` the CREPE frames the stream needed and `crepe_rows` the rows
@@ -180,7 +182,9 @@ class StreamingCrepe:
         new = range(self.head + 1, upto_frame + 1)
         if not new:
             return
-        probs = crepe_probabilities(self.model, self._frame_rows(new), batch_size=_CREPE_BATCH)
+        with span("svc.extract.crepe.probs"):
+            probs = crepe_probabilities(self.model, self._frame_rows(new),
+                                        batch_size=_CREPE_BATCH)
         obs = log_observations(viterbi_observations(probs, self.fmin, self.fmax))
         crepe_frames += len(new)
         crepe_rows += -(-len(new) // _CREPE_BATCH) * _CREPE_BATCH

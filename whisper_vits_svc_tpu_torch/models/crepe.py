@@ -5,8 +5,9 @@ core.py:539-700, decode.py:55-80, convert.py:12-57, filter.py:10-134).
   * 6 convolution layers over 1024-sample windows (the reference's Conv2d
     parameters, kernels of width 1, run as Conv1d), each ReLU, BatchNorm
     (eval: folded to a per-channel scale and bias, as the JAX package
-    folds it at load) and a max-pool by 2; a sigmoid over 360 bins of 20
-    cents;
+    folds it at load) and a max-pool by 2, on the card one launch a layer
+    of the CREPE convolution kernel (ops/crepe_conv_cuda.py), on the CPU
+    its plain version; a sigmoid over 360 bins of 20 cents;
   * framing on the host, per-frame mean/std normalisation on the device, in
     batches of 512 frames;
   * the Viterbi decode over the frequency-masked, softmaxed bin
@@ -27,10 +28,9 @@ from functools import lru_cache
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..ops import viterbi_cuda
+from ..ops import crepe_conv_cuda, viterbi_cuda
 from ..utils.device import resolve_device
 from .convert import torch_load_weights
 
@@ -65,18 +65,22 @@ class Crepe(nn.Module):
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
         """[N, 1024] normalised windows -> [N, 360] sigmoid probabilities.
 
-        The reference's (K, 1) Conv2d kernels run as Conv1d over [N, C, H]:
-        the same sums, but for the 2-D form cuDNN's heuristics pick FFT
-        algorithms at these shapes (on an H100: 467 ms and 32.6 GiB for 512
-        frames of "full", against 66 ms and 1.5 GiB; tools/crepe_conv_probe.py)."""
+        The reference's (K, 1) Conv2d kernels run as Conv1d over [N, C, H],
+        a layer (padding, convolution, ReLU, the folded BatchNorm, the pool)
+        a call of `crepe_conv_cuda.conv_relu_affine_pool`: one launch of the
+        CREPE convolution kernel on the card, the plain F.conv1d sequence on
+        the CPU. (For the 2-D form cuDNN's heuristics pick FFT algorithms at
+        these shapes: on an H100 467 ms and 32.6 GiB for 512 frames of
+        "full", against 66 ms and 1.5 GiB as Conv1d;
+        tools/crepe_conv_probe.py.)"""
         x = frames[:, None, :]  # [N, 1, 1024]
         for i in range(1, 7):
             conv, bn = getattr(self, f"conv{i}"), getattr(self, f"conv{i}_BN")
-            x = F.pad(x, (254, 254) if i == 1 else (31, 32))
-            x = F.relu(F.conv1d(x, conv.weight[..., 0], conv.bias, stride=conv.stride[0]))
             scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
-            bias = bn.bias - bn.running_mean * scale
-            x = F.max_pool1d(x * scale[:, None] + bias[:, None], 2, 2)
+            shift = bn.bias - bn.running_mean * scale
+            x = crepe_conv_cuda.conv_relu_affine_pool(
+                x, conv.weight[..., 0], conv.bias, scale, shift, conv.stride[0],
+                (254, 254) if i == 1 else (31, 32))
         # flatten in (h, c) order, as torchcrepe (and the JAX NHWC reshape) do
         return torch.sigmoid(self.classifier(x.transpose(1, 2).reshape(len(x), self.in_features)))
 

@@ -1,10 +1,11 @@
 """Build and load of the package's CUDA kernels (csrc/*.cu), shared by the
-kernel wrappers (snake_cuda, amp_cuda, viterbi_cuda).
+kernel wrappers (snake_cuda, amp_cuda, viterbi_cuda, crepe_conv_cuda).
 
 Each source is compiled at first use with nvcc into a plain C ABI shared
 library under <repo>/build/kernels/, keyed by the hash of the source, the
 headers beside it and the flags, and bound with ctypes; `build` starts one
-nvcc per source, all at once.
+nvcc per source, all at once. `tickets` holds the zeroed integer tickets
+that a kernel's last block takes to sum its split slots in a fixed order.
 """
 
 from __future__ import annotations
@@ -84,3 +85,17 @@ def load_library(source: Path, entry: str, argtypes: list, error_string: str) ->
 def param(p: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A kernel's parameter argument: `p` as float32, contiguous, on `device`."""
     return p.detach().to(device=device, dtype=torch.float32).contiguous()
+
+
+_tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def tickets(device: torch.device, n: int, stream: int) -> torch.Tensor:
+    """Integer tickets on `device` for `stream`: int32, at least n, zero
+    between launches (a kernel that takes them sets each back to 0), so
+    the kernels of one stream share one buffer, made at first use."""
+    buf = _tickets.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[(device, stream)] = buf
+    return buf

@@ -16,9 +16,8 @@ aligned in memory, so a row has `n_seg` of them, the first starting up to
 7 samples before the row; WARPS (8) warps a block, so a block may hold
 several short rows. The backward is one launch: its per-channel dalpha and
 dbeta are summed by the last warp of each channel, found with an integer
-ticket per channel that the kernel sets back to 0 (one zeroed buffer per
-device and stream, made at first use); its edge clamp sums take their
-coefficients from `clamp_taps`.
+ticket per channel that the kernel sets back to 0 (`cuda_build.tickets`);
+its edge clamp sums take their coefficients from `clamp_taps`.
 
 `snake_alias` takes the plain PyTorch version (nn/snake.py) only for a CPU
 tensor; for a CUDA tensor it launches the kernels or raises. When a gradient
@@ -48,7 +47,7 @@ import torch
 
 from ..nn.snake import _polyphase_taps, snake_alias_fused_cm
 from ..utils import counters
-from .cuda_build import CSRC, load_library, param
+from .cuda_build import CSRC, load_library, param, tickets
 
 SOURCE = CSRC / "snake_alias.cu"
 SOURCE_BWD = CSRC / "snake_alias_bwd.cu"
@@ -339,19 +338,6 @@ def snake_alias_mma_cuda(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tenso
     return out
 
 
-_tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
-
-
-def _ticket(device: torch.device, c: int, stream: int) -> torch.Tensor:
-    """The backward's per-channel tickets on `device` for `stream`: int32,
-    at least c, zero between launches (the kernel sets each back to 0)."""
-    buf = _tickets.get((device, stream))
-    if buf is None or buf.numel() < c:
-        buf = torch.zeros(max(c, 1024), dtype=torch.int32, device=device)
-        _tickets[(device, stream)] = buf
-    return buf
-
-
 def snake_alias_bwd_cuda(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
                          dy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel: (dx in x's dtype, dalpha and dbeta in
@@ -373,7 +359,7 @@ def snake_alias_bwd_cuda(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tenso
     grads = torch.empty((2, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        ticket = _ticket(x.device, c, stream)
+        ticket = tickets(x.device, c, stream)
         err = lib.snake_alias_backward(
             x.data_ptr(), dy.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
             parts[1].data_ptr(), ticket.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
